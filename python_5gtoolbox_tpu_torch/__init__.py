@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of python_5gtoolbox_tpu (5G NR Release-15 PHY).
+
+Same subpaths and public names as the JAX package. IQ is complex64 end
+to end; the two hot kernels of the link-level PDSCH sweep (the banded
+FIR and the flooded min-sum LDPC decoder) are hand-written CUDA under
+csrc/, built on first use by kernels.py. Every other operation is plain
+PyTorch.
+
+Entry points take `device=`; None means the CUDA card, and there is no
+silent CPU fallback: pass device="cpu" to run on the host.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """None -> cuda. Raises if CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' "
+                           "to run the port on the host")
+    return dev

@@ -1,0 +1,38 @@
+"""Hand random state drawn by another implementation to the port.
+
+The port cannot reproduce jax.random streams or the JAX package's global
+numpy draws, so to compute exactly what a JAX run computed, the caller
+takes that run's draws as numpy arrays and passes them here:
+
+  trblks (S, TBSize) 0/1            -> Pdsch.tx_grid_batch(trblks=)
+  taps   per path (N, Nr, Nt) complex -> NrChannelModel.filter(taps=)
+  noise  (Nr, N) complex, or a (real, imag) pair of unit normals
+                                     -> NrChannelModel.filter(noise=)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from python_5gtoolbox_tpu_torch import resolve_device
+
+
+def state_from_numpy(trblks=None, taps=None, noise=None, device=None
+                     ) -> dict:
+    """numpy draws -> dict(trblks=, taps=, noise=) of tensors on device
+    (None -> cuda); absent entries stay None."""
+    dev = resolve_device(device)
+    out = dict(trblks=None, taps=None, noise=None)
+    if trblks is not None:
+        out["trblks"] = torch.as_tensor(
+            np.array(trblks, np.int8), device=dev)
+    if taps is not None:
+        out["taps"] = [torch.as_tensor(np.array(t, np.complex64),
+                                       device=dev) for t in taps]
+    if noise is not None:
+        if isinstance(noise, (tuple, list)):
+            re, im = (np.asarray(v, np.float32) for v in noise)
+            noise = re + 1j * im
+        out["noise"] = torch.as_tensor(np.array(noise, np.complex64),
+                                       device=dev)
+    return out

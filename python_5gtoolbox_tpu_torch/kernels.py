@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by nvcc for sm_90a into its own shared library
+with a plain C interface and loaded with ctypes; no PyTorch headers are
+involved, so a build takes seconds. Libraries land in build/kernels/ at
+the repository root (git-ignored), named by a hash of source and flags,
+and are built on first use. All sources are compiled in parallel by
+build().
+
+LAUNCHES counts the kernel launches made by each wrapper
+(ops/filters.py:banded_fir, ops/ldpc/decode.py:ldpc_minsum_flooded).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" / "kernels"
+
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# source stem -> extra nvcc flags
+_SOURCES = {
+    "banded_fir": [],
+    # the LDPC decoder is bit-exact with the JAX reference: no FMA
+    # contraction
+    "ldpc_minsum": ["--fmad=false"],
+}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "banded_fir": ("banded_fir", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "ldpc_minsum": ("ldpc_minsum_flooded",
+                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
+                     _P, _P, _P]),
+}
+
+LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0}
+BUILD_LOG: dict[str, str] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit")
+    return path
+
+
+def _command(stem: str) -> tuple[list[str], pathlib.Path]:
+    src = _CSRC / f"{stem}.cu"
+    flags = _ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"] + _SOURCES[stem]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{stem}-{digest}.so"
+    return [_nvcc(), *flags, "-o", str(out), str(src)], out
+
+
+def build(stems=None) -> dict[str, float]:
+    """Compile the given sources (default: all) concurrently; return the
+    wall seconds per source (0.0 if already built). Raises on failure."""
+    stems = list(_SOURCES) if stems is None else list(stems)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, secs = {}, {}
+    t0 = time.perf_counter()
+    for stem in stems:
+        cmd, out = _command(stem)
+        if out.exists():
+            secs[stem] = 0.0
+            continue
+        # compile to a temporary name so a cut build never looks finished
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd[cmd.index(str(out))] = str(tmp)
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    for stem, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        secs[stem] = time.perf_counter() - t0
+        BUILD_LOG[stem] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {stem}.cu:\n{log}")
+        os.replace(tmp, out)
+    return secs
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<stem>.cu, built on first use."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        _, out = _command(stem)
+        if not out.exists():
+            build([stem])
+        lib = ctypes.CDLL(str(out))
+        name, argtypes = _SIGNATURES[stem]
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[stem] = lib
+    return lib
+
+
+def check(stem: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{stem} kernel launch failed with CUDA error "
+                           f"{rc}")

@@ -1,0 +1,302 @@
+"""PDSCH transmit chain: DLSCH coding, modulation, DMRS, RE mapping.
+
+Port of python_5gtoolbox_tpu/phy/pdsch.py, slot-batched TX only
+(tx_grid_batch): TB-CRC -> code-block segmentation -> LDPC encode -> LBRM
+rate match -> scramble -> QAM -> layer map -> precode -> grid, batched
+over slots and code blocks, with the grid composed from static slices.
+Transport blocks come from an explicit numpy Generator, or are passed in
+(trblks=) to reproduce another run's draws.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from python_5gtoolbox_tpu_torch import resolve_device
+from python_5gtoolbox_tpu_torch.ops import crc as crc_ops
+from python_5gtoolbox_tpu_torch.ops import ldpc as ldpc_ops
+from python_5gtoolbox_tpu_torch.ops.ldpc.segment import cb_segment
+from python_5gtoolbox_tpu_torch.ops.modulation import modulate, modulate_np
+from python_5gtoolbox_tpu_torch.ops.prbs import gen_prbs_np
+from python_5gtoolbox_tpu_torch.phy import tbsize as tbs_mod
+from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
+
+_QM_NAME = {2: "qpsk", 4: "16qam", 6: "64qam", 8: "256qam"}
+
+
+def dlsch_encode(trblk: torch.Tensor, tbsize: int, qm: int,
+                 rate1024: float, n_layers: int, rv: int, tbs_lbrm: int,
+                 G: int) -> torch.Tensor:
+    """(..., TBSize) bits -> (..., G) rate-matched coded bits (38.212 7.2)."""
+    A = tbsize
+    blkandcrc = crc_ops.crc_encode(trblk, "24A" if A > 3824 else "16")
+    bgn = 1
+    if (A <= 292 or (A <= 3824 and rate1024 <= 0.67 * 1024)
+            or rate1024 <= 0.25 * 1024):
+        bgn = 2
+    info = ldpc_ops.get_cbs_info(blkandcrc.shape[-1], bgn)
+    cbs = cb_segment(blkandcrc, info)                    # (..., C, K)
+    lead = cbs.shape[:-2]
+    dn = ldpc_ops.ldpc_encode(cbs.reshape(-1, info.K), bgn)
+    dn = dn.reshape(lead + (info.C, dn.shape[-1]))       # (..., C, N)
+    ncb = min(info.N, int(np.floor(tbs_lbrm / (info.C * 2 / 3))))
+    er_list = ldpc_ops.get_er_ldpc(G, info.C, qm, n_layers)
+    outs = []
+    c0 = 0
+    while c0 < info.C:        # at most two contiguous groups of equal Er
+        E = er_list[c0]
+        c1 = c0
+        while c1 < info.C and er_list[c1] == E:
+            c1 += 1
+        fe = ldpc_ops.ldpc_ratematch(dn[..., c0:c1, :], info, E, rv, qm,
+                                     Ncb=ncb)
+        outs.append(fe.reshape(lead + ((c1 - c0) * E,)))
+        c0 = c1
+    return torch.cat(outs, dim=-1)
+
+
+def pdsch_symbol_encode(g_seq: torch.Tensor, scramble_seq: torch.Tensor,
+                        precoding: torch.Tensor, qm: int,
+                        n_layers: int) -> torch.Tensor:
+    """Scramble + modulate + layer map + precode -> (..., ant, n_re)."""
+    syms = modulate(g_seq.to(torch.int8) ^ scramble_seq, _QM_NAME[qm])
+    n = syms.shape[-1]
+    xi = syms.reshape(syms.shape[:-1] + (n // n_layers, n_layers)
+                      ).transpose(-1, -2)
+    return torch.einsum("al,...lr->...ar", precoding.to(torch.complex64), xi)
+
+
+def _pdsch_compose_grid(data_syms: torch.Tensor, dmrs_vals: torch.Tensor,
+                        layout) -> torch.Tensor:
+    """(S, ant, n_data_re) data REs in the reference mapping order and
+    (S, nd, ant, rb12) DMRS vectors -> (S, ant, 14, n_sc) grids."""
+    (n_sc, rb_start, rb_size, start_sym, n_sym, dmrs_syms, cdm,
+     data_comb) = layout
+    s_dim, nant = data_syms.shape[0], data_syms.shape[1]
+    rb12, rb6 = rb_size * 12, rb_size * 6
+    grid = data_syms.new_zeros((s_dim, nant, 14, n_sc))
+    lo = rb_start * 12
+    off = 0
+    for sym in range(start_sym, start_sym + n_sym):
+        if sym in dmrs_syms:
+            region = dmrs_vals[:, dmrs_syms.index(sym)]      # (S, ant, rb12)
+            if cdm == 1:
+                region = region.reshape(s_dim, nant, rb6, 2).clone()
+                region[..., data_comb] = data_syms[..., off: off + rb6]
+                region = region.reshape(s_dim, nant, rb12)
+                off += rb6
+        else:
+            region = data_syms[..., off: off + rb12]
+            off += rb12
+        grid[:, :, sym, lo: lo + rb12] = region
+    return grid
+
+
+def pdsch_dmrs_seq(dmrs_cfg: dict, rb_start: int, rb_size: int, slot: int,
+                   sym: int, ref_point_prb: int = 0) -> np.ndarray:
+    """r(n) for one DMRS symbol (38.211 7.4.1.1.1), type 1: 6 RE/PRB."""
+    nid = dmrs_cfg["nNIDnSCID"]
+    cinit = ((((14 * slot + sym + 1) * (2 * nid + 1)) << 17)
+             + 2 * nid + dmrs_cfg["nSCID"]) % (2 ** 31)
+    start = (ref_point_prb + rb_start) * 6
+    seq = gen_prbs_np(cinit, 2 * rb_size * 6, offset=2 * start)
+    return modulate_np(seq, "qpsk")
+
+
+def get_dmrs_symlist(ld: int, add_pos: int) -> list[int]:
+    """DM-RS symbol positions, 38.211 Table 7.4.1.1.2-3 (type A, l0=2)."""
+    if ld <= 7:
+        return [2]
+    if ld <= 9:
+        return [2] if add_pos == 0 else [2, 7]
+    if ld <= 11:
+        return {0: [2], 1: [2, 9]}.get(add_pos, [2, 6, 9])
+    if ld == 12:
+        return {0: [2], 1: [2, 9], 2: [2, 6, 9]}.get(add_pos, [2, 5, 8, 11])
+    return {0: [2], 1: [2, 11], 2: [2, 7, 11], 3: [2, 5, 8, 11]}[add_pos]
+
+
+class Pdsch:
+    """PDSCH channel object (slot-batched TX + planning; the RX methods
+    live in phy/pdsch_rx.py).
+
+    rng: numpy Generator for transport blocks (default: seeded with 0);
+    device: where the TX tensors live (None -> cuda).
+    """
+
+    def __init__(self, pdsch_config: dict, carrier_config: dict,
+                 rng: np.random.Generator | None = None, device=None):
+        self.cfg = dict(pdsch_config)
+        self.carrier = carrier_config
+        self.device = resolve_device(device)
+        self.rng = np.random.default_rng(0) if rng is None else rng
+        self.prb_size = carrier_prb_size(carrier_config["scs"],
+                                         carrier_config["BW"])
+        tbsize, qm, rate = tbs_mod.gen_tbsize(self.cfg)
+        self.tbsize, self.qm, self.rate1024 = tbsize, qm, rate
+        self.tbs_lbrm = tbs_mod.gen_tbs_lbrm(
+            self.cfg, self.prb_size, carrier_config["maxMIMO_layers"])
+        self.rvidx = -1
+        self.trblk = None
+        pm = np.asarray(self.cfg.get("precoding_matrix", []),
+                        dtype=np.complex64)
+        if pm.size == 0:
+            pm = np.eye(carrier_config["num_of_ant"],
+                        self.cfg["num_of_layers"], dtype=np.complex64)
+        self.precoding = pm[:carrier_config["num_of_ant"],
+                            :self.cfg["num_of_layers"]]
+        self._cache: dict = {}
+
+    def getnextrv(self) -> int:
+        rvlist = self.cfg["rv"]
+        self.rvidx = (self.rvidx + 1) % len(rvlist)
+        return rvlist[self.rvidx]
+
+    def get_trblk(self, tbsize: int) -> np.ndarray:
+        src = list(self.cfg.get("data_source", []))
+        if not src:
+            return self.rng.integers(0, 2, size=tbsize).astype(np.int8)
+        reps = tbsize // len(src) + 1
+        return np.asarray((src * reps)[:tbsize], np.int8)
+
+    def tx_batch_supported(self) -> bool:
+        """True when the RE layout is slot-invariant and structured
+        (type-1 single-symbol DMRS, all-data allocation)."""
+        cfg, dmrs = self.cfg, self.cfg["DMRS"]
+        if dmrs["DMRSConfigType"] != 1 or dmrs["NrOfDMRSSymbols"] != 1:
+            return False
+        start = cfg["StartSymbolIndex"]
+        ld = start + cfg["NrOfSymbols"]
+        syms = get_dmrs_symlist(ld, dmrs["DMRSAddPos"])
+        if any(s < start or s >= ld for s in syms):
+            return False
+        combs = {((p - 1000) // 2) % 2
+                 for p in cfg["PortIndexList"][:cfg["num_of_layers"]]}
+        return not (dmrs["NumCDMGroupsWithoutData"] == 1 and len(combs) != 1)
+
+    def _tx_layout(self):
+        cfg, dmrs = self.cfg, self.cfg["DMRS"]
+        start = cfg["StartSymbolIndex"]
+        n_sym = cfg["NrOfSymbols"]
+        dmrs_syms = tuple(get_dmrs_symlist(start + n_sym,
+                                           dmrs["DMRSAddPos"]))
+        cdm = dmrs["NumCDMGroupsWithoutData"]
+        comb = ((cfg["PortIndexList"][0] - 1000) // 2) % 2
+        rb_start = cfg["ResAlloType1"]["RBStart"]
+        rb_size = cfg["ResAlloType1"]["RBSize"]
+        n_data_re = (n_sym - len(dmrs_syms)) * rb_size * 12
+        if cdm == 1:
+            n_data_re += len(dmrs_syms) * rb_size * 6
+        layout = (12 * self.prb_size, rb_start, rb_size, start, n_sym,
+                  dmrs_syms, cdm, 1 - comb)
+        return layout, n_data_re
+
+    def _dmrs_values(self, slot: int, precoding=None) -> np.ndarray:
+        """Precoded DMRS vectors for one slot: (nd, ant, rb12) complex64."""
+        if precoding is None:
+            precoding = self.precoding
+        cfg, dmrs = self.cfg, self.cfg["DMRS"]
+        rb_start = cfg["ResAlloType1"]["RBStart"]
+        rb_size = cfg["ResAlloType1"]["RBSize"]
+        symlist = get_dmrs_symlist(
+            cfg["StartSymbolIndex"] + cfg["NrOfSymbols"], dmrs["DMRSAddPos"])
+        ports = cfg["PortIndexList"]
+        scaling = (1.0 if dmrs["NumCDMGroupsWithoutData"] == 1
+                   else 10 ** (-3 / 20))
+        out = np.zeros((len(symlist), precoding.shape[0], rb_size * 12),
+                       np.complex64)
+        for k, sym in enumerate(symlist):
+            seq = pdsch_dmrs_seq(dmrs, rb_start, rb_size, slot, sym)
+            data = np.zeros((cfg["num_of_layers"], rb_size * 12),
+                            np.complex64)
+            for m in range(cfg["num_of_layers"]):
+                d0 = ports[m] - 1000
+                delta = (d0 // 2) % 2
+                wf1 = 1 - (d0 % 2) * 2
+                data[m, 0 + delta::4] = scaling * seq[0::2]
+                data[m, 2 + delta::4] = scaling * wf1 * seq[1::2]
+            out[k] = precoding @ data
+        return out
+
+    def tx_grid_batch(self, slot_list, roll_ant: int = 0, trblks=None):
+        """Slot-batched TX: every allocated slot of slot_list encoded and
+        composed at once -> (S, ant, 14, n_sc) complex64 grids on
+        self.device (gated slots all-zero).
+
+        rv cycling and transport-block regeneration follow the per-slot
+        process() of the reference (rvidx advances per allocated slot; a
+        fresh block at rvidx 0). trblks (Sa, TBSize), one row per
+        allocated slot, replaces the drawn blocks. roll_ant=k emits the
+        grid with the antenna axis pre-rolled by -k (the reference's
+        tx_low_phy ifftshift roll folded into the precoder rows).
+        """
+        cfg = self.cfg
+        dev = self.device
+        n_layers = cfg["num_of_layers"]
+        n_ant = self.carrier["num_of_ant"]
+        prec = (np.roll(self.precoding, -roll_ant, axis=0) if roll_ant
+                else self.precoding)
+        layout, n_data_re = self._tx_layout()
+        n_sc = layout[0]
+        s_dim = len(slot_list)
+
+        active_idx, rvs, drawn = [], [], []
+        for i, slot in enumerate(slot_list):
+            if (slot % cfg["period_in_slot"]) not in cfg["allocated_slots"]:
+                continue
+            rvs.append(self.getnextrv())
+            if trblks is None and (self.rvidx == 0 or self.trblk is None):
+                self.trblk = self.get_trblk(self.tbsize)
+            active_idx.append(i)
+            drawn.append(self.trblk)
+        grid = torch.zeros((s_dim, n_ant, 14, n_sc), dtype=torch.complex64,
+                           device=dev)
+        if not active_idx:
+            return grid
+        if trblks is None:
+            trb = torch.as_tensor(np.stack(drawn), device=dev)
+        else:
+            trb = torch.as_tensor(trblks, device=dev).to(torch.int8)
+            if trb.shape != (len(active_idx), self.tbsize):
+                raise ValueError(f"trblks must be ({len(active_idx)}, "
+                                 f"{self.tbsize}), got {tuple(trb.shape)}")
+
+        G = self.qm * n_layers * n_data_re
+        g_seq = torch.zeros((len(rvs), G), dtype=torch.int8, device=dev)
+        for rv in sorted(set(rvs)):
+            idx = torch.as_tensor([k for k, v in enumerate(rvs) if v == rv],
+                                  device=dev)
+            g_seq[idx] = dlsch_encode(trb[idx], self.tbsize, self.qm,
+                                      self.rate1024, n_layers, rv,
+                                      self.tbs_lbrm, G)
+        cinit = cfg["rnti"] * (2 ** 15) + cfg["nID"]
+        scr_key = ("scr", cinit, G)
+        if scr_key not in self._cache:
+            self._cache[scr_key] = torch.as_tensor(gen_prbs_np(cinit, G),
+                                                   device=dev)
+        precoded = pdsch_symbol_encode(
+            g_seq, self._cache[scr_key], torch.as_tensor(prec, device=dev),
+            self.qm, n_layers)                           # (Sa, ant, n_re)
+        dmrs_key = ("dmrs", roll_ant) + tuple(
+            int(slot_list[i]) for i in active_idx)
+        if dmrs_key not in self._cache:
+            self._cache[dmrs_key] = torch.as_tensor(np.stack(
+                [self._dmrs_values(int(slot_list[i]), precoding=prec)
+                 for i in active_idx]), device=dev)
+        composed = _pdsch_compose_grid(precoded, self._cache[dmrs_key],
+                                       layout)
+        if len(active_idx) == s_dim:
+            return composed
+        grid[torch.as_tensor(active_idx, device=dev)] = composed
+        return grid
+
+
+def _attach_rx_methods():
+    """Attach the receive path (phy/pdsch_rx.py) to Pdsch."""
+    from python_5gtoolbox_tpu_torch.phy import pdsch_rx
+
+    Pdsch.rx_process_batch = pdsch_rx.PdschRxMixin.rx_process_batch
+    Pdsch.rx_batch_prepare = pdsch_rx.PdschRxMixin.rx_batch_prepare
+
+
+_attach_rx_methods()

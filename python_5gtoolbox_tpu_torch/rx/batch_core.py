@@ -1,0 +1,179 @@
+"""Slot-batched RX core for PDSCH (DL-SCH).
+
+Port of python_5gtoolbox_tpu/rx/batch_core.py without UCI and transform
+precoding: LS estimation on DMRS REs -> DFT CE (rx/ce_batch.py) -> TO/FO
+data compensation -> linear equalization + max-log demod -> descramble
+-> Er-grouped LDPC rate recovery (+ optional HARQ soft combine) -> LDPC
+decode (the CUDA min-sum kernel on the card) -> TB CRC. The plan-time
+part runs once in build_batch_rx_core; the returned core() is plain
+tensor code batched over slots.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from python_5gtoolbox_tpu_torch.ops import crc as crc_ops
+from python_5gtoolbox_tpu_torch.ops import ldpc as ldpc_ops
+from python_5gtoolbox_tpu_torch.rx import ce_batch
+from python_5gtoolbox_tpu_torch.rx.equalize import equalize_and_demod_traced
+
+_MODTYPE = {1: "pi/2-bpsk", 2: "qpsk", 4: "16qam", 6: "64qam",
+            8: "256qam", 10: "1024qam"}
+
+
+def data_re_layout(ports, nl: int, ncdm: int, rb_size: int, ssi: int,
+                   nsym: int, symlist, qm: int):
+    """(dmrs_data_idx, G) — per-DMRS-symbol data-RE indices and the
+    total rate-match capacity (reference usage-map rules)."""
+    if ncdm == 2:
+        dmrs_map = np.ones(12, np.int8)
+    else:
+        dmrs_map = np.zeros(12, np.int8)
+        if 1000 in ports[:nl] or 1001 in ports[:nl]:
+            dmrs_map[0::2] = 1
+        if 1002 in ports[:nl] or 1003 in ports[:nl]:
+            dmrs_map[1::2] = 1
+    dmrs_data_idx = np.nonzero(np.tile(dmrs_map, rb_size) == 0)[0]
+    n_data_re = sum(
+        (len(dmrs_data_idx) if (ssi + k) in symlist else rb_size * 12)
+        for k in range(nsym))
+    return dmrs_data_idx, qm * nl * n_data_re
+
+
+def sch_decode_plan(tbsize: int, rate1024: float, G: int, qm: int,
+                    nl: int, tbs_lbrm: int | None):
+    """(tb_poly, B, bgn, info, ncb, er_list) — 38.212 7.2/6.2 sizing.
+    tbs_lbrm None => Ncb = N (no LBRM)."""
+    A = tbsize
+    tb_poly = "24A" if A > 3824 else "16"
+    B = A + (24 if A > 3824 else 16)
+    bgn = 1
+    if (A <= 292 or (A <= 3824 and rate1024 <= 0.67 * 1024)
+            or rate1024 <= 0.25 * 1024):
+        bgn = 2
+    info = ldpc_ops.get_cbs_info(B, bgn)
+    ncb = info.N if tbs_lbrm is None else \
+        min(info.N, math.floor(tbs_lbrm / (info.C * 2 / 3)))
+    er_list = ldpc_ops.get_er_ldpc(G, info.C, qm, nl)
+    return tb_poly, B, bgn, info, ncb, er_list
+
+
+def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
+                        ncdm, scs, n_sc, nr, qm, tbsize, rate1024,
+                        tbs_lbrm, rv, algo, ldpc_cfg, ce_config,
+                        symlist, scaling, harq=False):
+    """-> (core(rx (S, Nr, 14*n_sc) complex64, dmrs (S, nsym, rb*6)
+    complex64, scr_sign (G,) float32[, llr_prev (S, C, N)]) ->
+    (err (S,) int8, tbblk (S, A) int8[, llr_dns (S, C, N)]), G).
+
+    harq=True returns the rate-recovered buffer, soft-combined with
+    llr_prev where given (where both are nonzero the two are averaged),
+    so that rv-cycled transmissions can be chained.
+    """
+    modtype = _MODTYPE[qm]
+    dmrs_data_idx, G = data_re_layout(ports, nl, ncdm, rb_size, ssi, nsym,
+                                      symlist, qm)
+    tb_poly, B, bgn, info, ncb, er_list = sch_decode_plan(
+        tbsize, rate1024, G, qm, nl, tbs_lbrm)
+    rs_info = dict(RSSymMap=list(symlist), RE_distance=4,
+                   NumCDMGroupsWithoutData=ncdm, scs=scs)
+    A = tbsize
+
+    def core(fd, dm, scr_sign, llr_prev=None):
+        s = fd.shape[0]
+        dev = fd.device
+        # ---- LS estimation on DMRS REs (strided slices)
+        h_cols = []
+        for idx, sym in enumerate(symlist):
+            start = sym * n_sc + rb_start * 12
+            cseq = dm[:, idx].conj()                        # (S, rb*6)
+            per_tx = []
+            for tx in range(nl):
+                p0 = ports[tx] - 1000
+                delta = (p0 // 2) % 2
+                d0 = fd[:, :, start + delta: start + rb_size * 12: 4] \
+                    * cseq[:, None, 0::2]
+                d1 = fd[:, :, start + delta + 2: start + rb_size * 12: 4] \
+                    * cseq[:, None, 1::2]
+                sgn = 1.0 if p0 in (0, 2) else -1.0
+                per_tx.append((d0 + sgn * d1) / (2 * scaling))
+            h_cols.append(torch.stack(per_tx, dim=-1))      # (S, Nr, RE, NL)
+        h_ls = torch.stack(h_cols, dim=1).transpose(2, 3)
+
+        # ---- channel estimation
+        est = ce_batch.channel_est_batch(h_ls, rs_info, ce_config)
+        H, cov = est["H"], est["cov"]
+
+        # ---- data resource copy + TO/FO compensation
+        res = torch.stack([
+            fd[:, :, (ssi + k) * n_sc + rb_start * 12:
+               (ssi + k) * n_sc + rb_start * 12 + rb_size * 12]
+            .transpose(1, 2) for k in range(nsym)], dim=1)  # (S, nsym, RE, Nr)
+        res = ce_batch.comp_data_batch(
+            res, ssi, scs, est["to_avg"],
+            est["fo"] if est["fo_applied"] else None, ce_config)
+
+        # ---- per-symbol data-RE selection (reference G order)
+        ys, hs, cvs = [], [], []
+        for k in range(nsym):
+            sym = ssi + k
+            if sym in symlist:
+                if ncdm == 2:
+                    continue
+                didx = dmrs_data_idx
+            else:
+                didx = np.arange(rb_size * 12)
+            di = torch.as_tensor(didx, device=dev)
+            ys.append(res[:, k, di, :])
+            hs.append(H[:, sym, di, :, :nl])
+            cvs.append(cov[:, sym, di // 12, :, :])
+        y = torch.cat(ys, dim=1)                            # (S, NRE, Nr)
+        h = torch.cat(hs, dim=1)
+        cv = torch.cat(cvs, dim=1)
+        n_re = y.shape[1]
+        llr = equalize_and_demod_traced(
+            y.reshape(s * n_re, nr), h.reshape(s * n_re, nr, nl),
+            cv.reshape(s * n_re, nr, nr), modtype, algo)
+        llr = llr.reshape(s, G) * scr_sign[None, :]
+
+        # ---- de-rate-match (Er groups) -> (S, C, N)
+        grps = []
+        g_off = 0
+        c0 = 0
+        while c0 < info.C:
+            E = er_list[c0]
+            c1 = c0
+            while c1 < info.C and er_list[c1] == E:
+                c1 += 1
+            grp = llr[:, g_off: g_off + (c1 - c0) * E] \
+                .reshape(s * (c1 - c0), E)
+            mx = 10.0 * grp.abs().amax(dim=-1, keepdim=True)
+            rec = ldpc_ops.ldpc_raterecover(grp, info, rv, qm, Ncb=ncb,
+                                            max_llr=mx)
+            grps.append(rec.reshape(s, c1 - c0, info.N))
+            g_off += (c1 - c0) * E
+            c0 = c1
+        llr_dns = torch.cat(grps, dim=1)                    # (S, C, N)
+
+        if llr_prev is not None:
+            both = (llr_dns != 0) & (llr_prev != 0)
+            comb = llr_dns + llr_prev
+            llr_dns = torch.where(both, comb / 2, comb).to(torch.float32)
+
+        bits, _, _ = ldpc_ops.ldpc_decode(
+            llr_dns.reshape(s * info.C, info.N).contiguous(), info.Zc, bgn,
+            ldpc_cfg["L"], algo=ldpc_cfg["algo"], alpha=ldpc_cfg["alpha"],
+            beta=ldpc_cfg["beta"])
+        bits = bits.reshape(s, info.C, -1)
+        k_apo = info.cbz + info.L
+        cb_bits = bits[:, :, : info.cbz] if info.C > 1 \
+            else bits[:, :, : k_apo]
+        tbblkandcrc = cb_bits.reshape(s, -1)[:, :B]
+        err = crc_ops.crc_check(tbblkandcrc, tb_poly)
+        outs = (err, tbblkandcrc[:, :A])
+        return outs + (llr_dns,) if harq else outs
+
+    return core, G

@@ -1,0 +1,99 @@
+"""Where the link-level PDSCH sweep spends its time on the card.
+
+    python -m python_5gtoolbox_tpu_torch.sim.profile_sweep [TRACE.json]
+
+Runs the bench configuration (pdsch_throughput.bench_link_level_config,
+6 SNR points x 20 slots) twice after one warm run and prints one JSON
+line each:
+  * "stages": host wall time per stage of the sweep (tx_waveform,
+    channel, rx_lowphy, rx_batch[MMSE-IRC]), each stage ended by
+    torch.cuda.synchronize();
+  * "kernels": torch.profiler device time per kernel over one sweep
+    without stage synchronisation, the sweep's wall time and the share
+    of it the device was busy; with a path argument the Chrome trace of
+    that sweep is written there.
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import sys
+import time
+
+import torch
+
+from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+
+SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
+N_SLOTS = 20
+
+
+class SyncStageTimer:
+    """sim prof= hook: wall seconds per stage, device synchronised at the
+    end of each stage so that a stage is charged for its own kernels."""
+
+    def __init__(self):
+        self.seconds = collections.defaultdict(float)
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.seconds[name] += time.perf_counter() - t0
+
+
+def _run_sweep(prof=None):
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    return sim.run_pdsch_throughput(carrier, pdsch, chan, SNRS,
+                                    ["MMSE-IRC"], n_slots=N_SLOTS,
+                                    ce_config=ce, ldpc_config=ldpc, seed=3,
+                                    device="cuda", prof=prof)
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _run_sweep()                                         # warm
+    timer = SyncStageTimer()
+    t0 = time.perf_counter()
+    _run_sweep(timer)
+    wall = time.perf_counter() - t0
+    total = sum(timer.seconds.values())
+    print(json.dumps(dict(
+        phase="stages", wall_s=wall, seconds=timer.seconds,
+        share={k: v / total for k, v in timer.seconds.items()})), flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _run_sweep()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        # device-side events only (kernels, memcpy, memset): operator
+        # events would count their kernels' time a second time
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append(dict(name=evt.key[:90], calls=evt.count,
+                             device_ms=dev_us / 1e3))
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows) / 1e3
+    if len(sys.argv) > 1:
+        prof.export_chrome_trace(sys.argv[1])
+    print(json.dumps(dict(
+        phase="kernels", wall_s=wall, device_busy_s=busy,
+        device_busy_share=busy / wall,
+        launches=sum(r["calls"] for r in rows), n_kernel_names=len(rows),
+        top=rows[:20])), flush=True)
+
+
+if __name__ == "__main__":
+    main()
