@@ -1,13 +1,24 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the hand-written CUDA kernels from python_5gtoolbox_tpu_torch/csrc,
-holds each against its plain PyTorch version at the main path's shapes,
-then runs the link-level PDSCH sweep at the bench configuration
-(bench.py:bench_link_level) through the port's entry points and checks
-that it went through both kernels and decodes a clean 30 dB point
-exactly. Each phase prints one JSON line; the last two lines are the
-kernel table and {"ok": true, "device": {...}}. Any failure raises and
-exits non-zero. Run from the repository root:
+holds each against its plain PyTorch version at the main paths' shapes,
+then drives the port's paths through its entry points:
+
+  * the link-level PDSCH sweep at the bench configuration
+    (bench.py:bench_link_level) at the carrier rate: banded FIR and LDPC
+    kernels, a clean 30 dB point decoded exactly;
+  * OFDM + DUC at the width of the waveform bench (bench.py:bench_ofdm_duc:
+    scs 30, BW 100, 64 slots, 2 antennas, 245.76 Msps): the spectrum DUC
+    kernel, held against the plain path;
+  * the same sweep with waveform, channel and RX front end at 245.76
+    Msps (spectrum DUC, halfband up/down stages, FIR, LDPC), and one
+    waveform each with a timing error (flat fused FIR + halfband) and at
+    scs 15 / BW 5 (symbol DUC kernel).
+
+The launch counters are zeroed just before each path and read just
+after. Each phase prints JSON lines; the last two lines are the kernel
+table and {"ok": true, "device": {...}}. Any failure raises and exits
+non-zero. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -17,6 +28,7 @@ or near-exact, and the FIR yardstick (cuDNN conv1d) defaults to TF32.
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -32,11 +44,12 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from python_5gtoolbox_tpu_torch import kernels  # noqa: E402
 from python_5gtoolbox_tpu_torch.interop import state_from_numpy  # noqa: E402
-from python_5gtoolbox_tpu_torch.ops import filters  # noqa: E402
+from python_5gtoolbox_tpu_torch.ops import filters, ofdm  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
+from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -45,6 +58,7 @@ DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, FP32 outside tensor cores
 FIR_TOL = 1.2e-4               # tests/test_pallas_filters.py tolerance
+SUMMARY: dict = {}             # end-to-end rates, printed again near the end
 
 
 def emit(phase: str, **kw) -> None:
@@ -112,13 +126,26 @@ def _library_fir(planes, taps, mode):
 def phase_fir(rng) -> dict:
     """banded_fir against banded_fir_plain in all three modes."""
     worst, main = 0.0, None
-    cases = [((4, 307200), filters.fir_coeff(30, 20), "TX FIR, BW 20"),
-             ((8, 307200), filters.fir_coeff(30, 20), "RX FIR, BW 20"),
-             ((4, 307200), filters.fir_coeff(30, 100), "287 taps, BW 100")]
-    for shape, taps, label in cases:
+    all_modes = ("same", "up2", "down2")
+    hb = filters.halfband_coeff()
+    # the FIR at the carrier rate, then the halfband stages of the 245.76
+    # Msps sweep (BW 20, 20 slots, 2 TX / 4 RX antennas): DUC 2x -> 4x -> 8x
+    # after the fused kernel, DDC 8x -> 4x -> 2x -> 1x before the FIR
+    cases = [((4, 307200), filters.fir_coeff(30, 20), "TX FIR, BW 20",
+              all_modes),
+             ((8, 307200), filters.fir_coeff(30, 20), "RX FIR, BW 20",
+              all_modes),
+             ((4, 307200), filters.fir_coeff(30, 100), "287 taps, BW 100",
+              all_modes),
+             ((4, 614400), hb, "DUC halfband 2x -> 4x", ("up2",)),
+             ((4, 1228800), hb, "DUC halfband 4x -> 8x", ("up2",)),
+             ((8, 2457600), hb, "DDC halfband 8x -> 4x", ("down2",)),
+             ((8, 1228800), hb, "DDC halfband 4x -> 2x", ("down2",)),
+             ((8, 614400), hb, "DDC halfband 2x -> 1x", ("down2",))]
+    for shape, taps, label, modes in cases:
         x = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
                             device=DEV)
-        for mode in ("same", "up2", "down2"):
+        for mode in modes:
             got = filters.banded_fir(x, taps, mode)
             ref = filters.banded_fir_plain(x, taps, mode)
             torch.cuda.synchronize()
@@ -130,14 +157,14 @@ def phase_fir(rng) -> dict:
                 raise AssertionError(f"banded_fir {mode} {label}: max abs "
                                      f"error {err} >= {FIR_TOL}")
             worst = max(worst, err)
-            k_ms = cuda_ms(lambda: filters.banded_fir(x, taps, mode), 50)
+            k_ms = cuda_ms(lambda: filters.banded_fir(x, taps, mode), 20)
             p_ms = cuda_ms(lambda: filters.banded_fir_plain(x, taps, mode),
-                           20)
+                           10)
             lib = _library_fir(x, taps, mode)
             if lib is not None:
                 lib_out = lib()[:, 0, :got.shape[1]]
                 lib_err = (lib_out - ref).abs().max().item()
-                l_ms = cuda_ms(lib, 50)
+                l_ms = cuda_ms(lib, 20)
             else:
                 lib_err = l_ms = None
             n, (p, t), t_out = len(taps), shape, got.shape[1]
@@ -214,8 +241,196 @@ def phase_ldpc(rng) -> dict:
     return main
 
 
-def phase_sweep() -> dict:
+# ---------------------------------------------------------------------------
+# The three fused DUC kernels
+# ---------------------------------------------------------------------------
+
+def _fused_ops(n1: int, n2: int, planes: int, t: int) -> float:
+    """FIR: n1 FMAs per 1x sample; halfband: n2 / 2 per output, two
+    outputs per 1x sample."""
+    return 2.0 * (n1 + n2) * planes * t
+
+
+def _check(name: str, label: str, got, ref) -> float:
+    torch.cuda.synchronize()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name} {label}: shape {tuple(got.shape)} != "
+                             f"{tuple(ref.shape)}")
+    err = (got - ref).abs().max().item()
+    if not err < FIR_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {label}: max abs error {err} >= "
+                             f"{FIR_TOL} or non-finite output")
+    return err
+
+
+def _random_grid(rng, scs, bw, nant, n_slots):
+    cfg = dict(scs=scs, bw=bw, nant=nant, n_slots=n_slots)
+    return sim.ofdm_duc_grid(cfg, seed=int(rng.integers(1 << 30)), device=DEV)
+
+
+def _case_fused(rng, shape, scs, bw, label):
+    fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
+    x = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                        device=DEV)
+    kern = functools.partial(filters.fir_up2_fused_planes, x, fir, hb)
+    plain = functools.partial(filters.fir_up2_fused_plain, x, fir, hb)
+    p, t = shape
+    n_bytes = 4 * (3 * p * t + len(fir) + len(hb))
+    return ("fir_up2_fused", label, kern, plain, n_bytes,
+            _fused_ops(len(fir), len(hb), p, t),
+            dict(shape=list(shape), taps=len(fir)))
+
+
+def _case_symbols(rng, scs, bw, nant, n_slots):
+    fc = int(3500e6)
+    fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
+    symp = ofdm.tx_low_phy_sym_planes(_random_grid(rng, scs, bw, nant,
+                                                   n_slots), scs, bw, fc)
+    nfft = symp.shape[-1]
+    cps = ofdm._cp_table(scs, nfft)
+    kern = functools.partial(filters.fir_up2_fused_symbols, symp, cps, fir,
+                             hb)
+    plain = functools.partial(filters.fir_up2_fused_symbols_plain, symp, cps,
+                              fir, hb)
+    t = n_slots * ofdm.slot_sample_count(scs, bw)
+    p = 2 * nant
+    n_bytes = 4 * (symp.numel() + 2 * p * t + len(fir) + len(hb) + 14)
+    return ("fir_up2_fused_symbols", f"scs {scs}, BW {bw}, {n_slots} slots",
+            kern, plain, n_bytes, _fused_ops(len(fir), len(hb), p, t),
+            dict(shape=list(symp.shape), taps=len(fir)))
+
+
+def _case_spec(fd, scs, bw, fc=int(3500e6)):
+    nant, n_slots = fd.shape[0], fd.shape[1]
+    fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
+    spec = ofdm.tx_spec_planes(fd, scs, bw, fc)
+    nfft = spec.shape[-1]
+    cps, pc = ofdm._cp_table(scs, nfft), ofdm._phase_comp(scs, nfft, fc)
+    # the wrapper below duc_from_spec_planes: both planes in one tensor
+    kern = functools.partial(filters._duc_from_spec, spec, cps, fir, hb, pc)
+
+    def plain():
+        return torch.cat(filters.duc_from_spec_planes_plain(spec, cps, fir,
+                                                            hb, pc))
+    t = n_slots * ofdm.slot_sample_count(scs, bw)
+    p = 2 * nant
+    # IDFT 5 N log2 N per symbol; sign, scale and phase compensation 8 per
+    # complex timeline sample
+    n_ops = _fused_ops(len(fir), len(hb), p, t) \
+        + nant * n_slots * 14 * 5.0 * nfft * np.log2(nfft) + 8.0 * nant * t
+    n_bytes = 4 * (spec.numel() + 2 * p * t + len(fir) + len(hb) + 14 + 28
+                   + nfft)
+    return ("duc_from_spec", f"scs {scs}, BW {bw}, {n_slots} slots", kern,
+            plain, n_bytes, n_ops,
+            dict(shape=list(spec.shape), taps=len(fir)))
+
+
+def _run_case(case, reps_kernel=20, reps_plain=5) -> dict:
+    """Kernel against plain on the card, then both timed."""
+    name, label, kern, plain, n_bytes, n_ops, extra = case
+    err = _check(name, label, kern(), plain())
+    k_ms = cuda_ms(kern, reps_kernel)
+    p_ms = cuda_ms(plain, reps_plain)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    # no single PyTorch call computes FIR + mask + halfband (+ CP, + IDFT)
+    row = dict(label=label, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, **extra)
+    emit(name, **row)
+    return row
+
+
+def phase_duc_kernels(rng) -> dict:
+    """Each fused DUC kernel against its plain version; returns the row of
+    each kernel at its main path's shape, with the worst error of all its
+    cases."""
+    cases = [
+        _case_fused(rng, (4, 307200), 30, 20, "Dm waveform, BW 20"),
+        _case_fused(rng, (4, 3932160), 30, 100, "287 taps, 64 slots BW 100"),
+        _case_fused(rng, (2, 15360), 30, 20, "1 slot, BW 20"),
+        _case_symbols(rng, 15, 5, 2, 20),
+        _case_symbols(rng, 30, 10, 2, 20),
+        _case_symbols(rng, 30, 5, 2, 1),
+        _case_spec(_random_grid(rng, 30, 20, 2, 20), 30, 20),   # sweep_245
+        _case_spec(_random_grid(rng, 30, 40, 2, 8), 30, 40),
+        _case_spec(_random_grid(rng, 30, 100, 2, 8), 30, 100),
+        _case_spec(_random_grid(rng, 30, 100, 2, 1), 30, 100),
+    ]
+    main, worst = {}, {}
+    for case in cases:
+        row = _run_case(case)
+        worst[case[0]] = max(worst.get(case[0], 0.0), row["max_abs_err"])
+        main.setdefault(case[0], row)
+    for name, row in main.items():
+        row["max_abs_err"] = worst[name]
+    return main
+
+
+def _plain_duc(fd_ant_major, scs, bw, fc, rate_hz, slot_phase=True,
+               start_slot=0):
+    """The waveform of filters.tx_lowphy_duc from the plain versions
+    only: torch.fft, CP concat, conv1d stages."""
+    symp = ofdm.tx_low_phy_sym_planes(fd_ant_major, scs, bw, fc,
+                                      slot_phase=slot_phase,
+                                      start_slot=start_slot)
+    y = filters.fir_up2_fused_symbols_plain(
+        symp, ofdm._cp_table(scs, symp.shape[-1]), filters.fir_coeff(scs, bw),
+        filters.halfband_coeff())
+    for _ in range(int(np.log2(filters._oversample(scs, bw, rate_hz))) - 1):
+        y = filters.banded_fir_plain(y, filters.halfband_coeff(), "up2")
+    nant = fd_ant_major.shape[0]
+    return torch.complex(y[:nant], y[nant:])
+
+
+def phase_duc(main: dict) -> int:
+    """OFDM + DUC at the full width of the waveform bench through
+    sim.run_ofdm_duc; returns the launches of duc_from_spec in one run and
+    puts the kernel's row at this shape into main."""
+    cfg = sim.bench_ofdm_duc_config()
+    fd = sim.ofdm_duc_grid(cfg, seed=0, device=DEV)
+    sim.run_ofdm_duc(fd, cfg, device=DEV)                    # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    re, im = sim.run_ofdm_duc(fd, cfg, device=DEV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches["duc_from_spec"] <= 0:
+        raise AssertionError("run_ofdm_duc never launched duc_from_spec")
+    n_out = re.shape[1]
+    over = filters._oversample(cfg["scs"], cfg["bw"], cfg["out_rate_hz"])
+    want = (cfg["nant"], over * cfg["n_slots"]
+            * ofdm.slot_sample_count(cfg["scs"], cfg["bw"]))
+    if tuple(re.shape) != want or tuple(im.shape) != want:
+        raise AssertionError(f"waveform planes {tuple(re.shape)} != {want}")
+    plain = _plain_duc(fd, cfg["scs"], cfg["bw"], cfg["carrier_freq_hz"],
+                       cfg["out_rate_hz"], slot_phase=False)
+    err = _check("run_ofdm_duc", "full width", torch.complex(re, im), plain)
+    del plain
+    step_ms = cuda_ms(lambda: sim.run_ofdm_duc(fd, cfg, device=DEV), 10)
+    SUMMARY["ofdm_duc_msamples_per_s"] = cfg["nant"] * n_out / step_ms / 1e3
+    emit("ofdm_duc", scs=cfg["scs"], bw=cfg["bw"], n_slots=cfg["n_slots"],
+         nant=cfg["nant"], out_rate_mhz=cfg["out_rate_hz"] / 1e6,
+         complex_samples_out=cfg["nant"] * n_out, first_timed_run_s=dt,
+         step_ms=step_ms,
+         msamples_per_s=cfg["nant"] * n_out / step_ms / 1e3,
+         max_abs_err_vs_plain=err, launches=launches)
+    row = _run_case(_case_spec(fd, cfg["scs"], cfg["bw"],
+                               cfg["carrier_freq_hz"]))
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             main["duc_from_spec"]["max_abs_err"])
+    main["duc_from_spec"] = row
+    return launches["duc_from_spec"]
+
+
+def _sweep(phase: str, rate_mhz, expected) -> dict:
+    """The bench link-level sweep (6 SNR points x 20 slots, warm) at the
+    carrier rate or at rate_mhz, then a clean 30 dB point that must decode
+    exactly. Returns the timed sweep's launch counts; fails if a kernel
+    named in expected was not launched."""
     carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    if rate_mhz is not None:
+        carrier["samplerate_in_mhz"] = rate_mhz
     snrs = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
     n_slots = 20
     kw = dict(ceq_algo_list=["MMSE-IRC"], n_slots=n_slots, ce_config=ce,
@@ -230,10 +445,11 @@ def phase_sweep() -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the sweep never launched {name}")
-    emit("sweep", snr_db=snrs, pass_rate=res["MMSE-IRC"],
+    for name in expected:
+        if launches[name] <= 0:
+            raise AssertionError(f"the {phase} never launched {name}")
+    SUMMARY[f"{phase}_slots_per_s"] = len(snrs) * n_slots / dt
+    emit(phase, snr_db=snrs, pass_rate=res["MMSE-IRC"],
          tbs_bits=res["tbs_bits"], slots=len(snrs) * n_slots, seconds=dt,
          slots_per_s=len(snrs) * n_slots / dt, warm_run_s=warm_s,
          launches=launches)
@@ -256,32 +472,109 @@ def phase_sweep() -> dict:
         sim._ce_config(ce, chan, carrier["scs"]))
     n_pass = int(ok.sum())
     exact = bool(np.array_equal(tbblk, trblks))
-    emit("sweep_30db", passed=n_pass, slots=n_slots, tb_bits_exact=exact)
+    emit(f"{phase}_30db", passed=n_pass, slots=n_slots, tb_bits_exact=exact)
     if n_pass != n_slots or not exact:
-        raise AssertionError(f"30 dB point: {n_pass}/{n_slots} passed, "
-                             f"TB bits exact: {exact}")
+        raise AssertionError(f"{phase} 30 dB point: {n_pass}/{n_slots} "
+                             f"passed, TB bits exact: {exact}")
     return launches
+
+
+def phase_sweep() -> dict:
+    return _sweep("sweep", None, ("banded_fir", "ldpc_minsum_flooded"))
+
+
+def phase_sweep_245() -> dict:
+    return _sweep("sweep_245", 245.76,
+                  ("duc_from_spec", "banded_fir", "ldpc_minsum_flooded"))
+
+
+def phase_waveforms() -> dict:
+    """gen_dl_waveform at 245.76 Msps on the two branches the sweep does
+    not take: with a timing error Dm (OFDM apart, then fir_up2_fused) and
+    at scs 15 / BW 5 (nfft 512: fir_up2_fused_symbols), each held against
+    the plain versions. Returns the launches of those two kernels."""
+    carrier, pdsch, _, _, _ = sim.bench_link_level_config()
+    n_slots, out = 20, {}
+    wf = dict(numofslots=n_slots, startSFN=0, startslot=0,
+              samplerate_in_mhz=245.76)
+    hb = filters.halfband_coeff()
+
+    nr_pdsch = Pdsch(pdsch, carrier, rng=np.random.default_rng(7), device=DEV)
+    kernels.reset_launches()
+    _, td, dl, _ = dl_wf.gen_dl_waveform(
+        wf, carrier, [nr_pdsch], Dm=np.full((n_slots, 14), 2e-9))
+    torch.cuda.synchronize()
+    out["fir_up2_fused"] = kernels.LAUNCHES["fir_up2_fused"]
+    shape_dm = list(dl.shape)
+    ref = filters.fir_up2_fused_plain(
+        torch.cat([td.real, td.imag]), filters.fir_coeff(30, 20), hb)
+    for _ in range(2):
+        ref = filters.banded_fir_plain(ref, hb, "up2")
+    err_dm = _check("gen_dl_waveform", "with Dm", dl,
+                    torch.complex(ref[:2], ref[2:]))
+
+    # the DDC on that waveform against its plain stages: three halfband
+    # down2, then the FIR
+    ddc = filters.rx_channel_filter(dl, 30, 20, 245.76e6)
+    ref = torch.cat([dl.real, dl.imag])
+    for _ in range(3):
+        ref = filters.banded_fir_plain(ref, hb, "down2")
+    ref = filters.banded_fir_plain(ref, filters.fir_coeff(30, 20), "same")
+    err_ddc = _check("rx_channel_filter", "245.76 Msps", ddc,
+                     torch.complex(ref[:2], ref[2:]))
+
+    carrier15 = dict(carrier, scs=15, BW=5)
+    nr_pdsch = Pdsch(pdsch, carrier15, rng=np.random.default_rng(8),
+                     device=DEV)
+    kernels.reset_launches()
+    fd, _, dl, _ = dl_wf.gen_dl_waveform(wf, carrier15, [nr_pdsch])
+    torch.cuda.synchronize()
+    out["fir_up2_fused_symbols"] = kernels.LAUNCHES["fir_up2_fused_symbols"]
+    # fd is the unrolled grid; the waveform was made from the rolled one
+    grid = torch.roll(fd.reshape(2, n_slots, 14, -1), -1, dims=0)
+    ref = _plain_duc(grid, 15, 5, int(carrier15["carrier_frequency_in_mhz"]
+                                      * 1e6), 245.76e6)
+    err_15 = _check("gen_dl_waveform", "scs 15, BW 5", dl, ref)
+    for name, count in out.items():
+        if count <= 0:
+            raise AssertionError(f"gen_dl_waveform never launched {name}")
+    emit("waveforms_245", launches=out, dl_shape_dm=shape_dm,
+         dl_shape_scs15=list(dl.shape), max_abs_err_dm=err_dm,
+         max_abs_err_ddc=err_ddc, max_abs_err_scs15=err_15)
+    return out
 
 
 def main() -> None:
     rng = np.random.default_rng(2024)
     phase_device()
-    fir = phase_fir(rng)
-    ldpc = phase_ldpc(rng)
+    rows = dict(banded_fir=phase_fir(rng), ldpc_minsum_flooded=phase_ldpc(rng))
+    rows.update(phase_duc_kernels(rng))
     launches = phase_sweep()
+    launches["duc_from_spec"] = phase_duc(rows)
+    phase_sweep_245()
+    launches.update(phase_waveforms())
+    csrc = "python_5gtoolbox_tpu_torch/csrc/"
+    tpu = "python_5gtoolbox_tpu/ops/"
     table = []
-    for name, src, replaces, row in [
-            ("banded_fir", "python_5gtoolbox_tpu_torch/csrc/banded_fir.cu",
-             "python_5gtoolbox_tpu/ops/pallas_filters.py:93", fir),
-            ("ldpc_minsum_flooded",
-             "python_5gtoolbox_tpu_torch/csrc/ldpc_minsum.cu",
-             "python_5gtoolbox_tpu/ops/ldpc/pallas_decode.py:138", ldpc)]:
-        table.append(dict(name=name, route="cuda", source=src,
-                          replaces=replaces, launches=launches[name],
+    # launches: banded_fir and ldpc_minsum_flooded in the carrier-rate
+    # sweep, duc_from_spec in the OFDM + DUC run, the other two in their
+    # gen_dl_waveform call
+    for name, src, replaces in [
+            ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
+            ("ldpc_minsum_flooded", "ldpc_minsum.cu",
+             "ldpc/pallas_decode.py:138"),
+            ("fir_up2_fused", "fir_up2_fused.cu", "pallas_filters.py:223"),
+            ("fir_up2_fused_symbols", "fir_up2_fused_symbols.cu",
+             "pallas_filters.py:368"),
+            ("duc_from_spec", "duc_from_spec.cu", "pallas_filters.py:581")]:
+        row = rows[name]
+        table.append(dict(name=name, route="cuda", source=csrc + src,
+                          replaces=tpu + replaces, launches=launches[name],
                           max_abs_err=row["max_abs_err"],
                           ms=row["kernel_ms"], plain_ms=row["plain_ms"],
                           bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                           library_ms=row["library_ms"]))
+    emit("summary", **SUMMARY)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

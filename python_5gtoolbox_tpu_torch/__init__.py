@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of python_5gtoolbox_tpu (5G NR Release-15 PHY).
 
 Same subpaths and public names as the JAX package. IQ is complex64 end
-to end; the two hot kernels of the link-level PDSCH sweep (the banded
-FIR and the flooded min-sum LDPC decoder) are hand-written CUDA under
-csrc/, built on first use by kernels.py. Every other operation is plain
-PyTorch.
+to end; five kernels are hand-written CUDA under csrc/, built on first
+use by kernels.py: the banded FIR and the flooded min-sum LDPC decoder
+of the link-level PDSCH sweep, and the three fused DUC kernels of the
+245.76 Msps waveform path (FIR + halfband from a flat plane, from
+per-symbol IFFT outputs with CP insertion, and from the spectrum with
+the IDFT inside). Every other operation is plain PyTorch.
 
 Entry points take `device=`; None means the CUDA card, and there is no
 silent CPU fallback: pass device="cpu" to run on the host.

@@ -3,12 +3,14 @@
 Each source is compiled by nvcc for sm_90a into its own shared library
 with a plain C interface and loaded with ctypes; no PyTorch headers are
 involved, so a build takes seconds. Libraries land in build/kernels/ at
-the repository root (git-ignored), named by a hash of source and flags,
-and are built on first use. All sources are compiled in parallel by
-build().
+the repository root (git-ignored), named by a hash of source, the
+shared headers it includes and flags, and are built on first use. All sources are compiled
+in parallel by build().
 
-LAUNCHES counts the kernel launches made by each wrapper
-(ops/filters.py:banded_fir, ops/ldpc/decode.py:ldpc_minsum_flooded).
+LAUNCHES counts the kernel launches made by each wrapper:
+ops/filters.py:banded_fir, fir_up2_fused_planes (counter fir_up2_fused),
+fir_up2_fused_symbols, duc_from_spec_planes (counter duc_from_spec) and
+ops/ldpc/decode.py:ldpc_minsum_flooded.
 """
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ _SOURCES = {
     # the LDPC decoder is bit-exact with the JAX reference: no FMA
     # contraction
     "ldpc_minsum": ["--fmad=false"],
+    # the three fused DUC kernels share csrc/duc_common.cuh
+    "fir_up2_fused": [],
+    "fir_up2_fused_symbols": [],
+    "duc_from_spec": [],
 }
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -37,9 +43,14 @@ _SIGNATURES = {
     "ldpc_minsum": ("ldpc_minsum_flooded",
                     [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
                      _P, _P, _P]),
+    "fir_up2_fused": ("fir_up2_fused", [_P] * 4 + [_I] * 4 + [_P]),
+    "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
+                              [_P] * 5 + [_I] * 6 + [_P]),
+    "duc_from_spec": ("duc_from_spec", [_P] * 7 + [_I] * 8 + [_P]),
 }
 
-LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0}
+LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0, "fir_up2_fused": 0,
+            "fir_up2_fused_symbols": 0, "duc_from_spec": 0}
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -61,8 +72,12 @@ def _command(stem: str) -> tuple[list[str], pathlib.Path]:
     src = _CSRC / f"{stem}.cu"
     flags = _ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"] + _SOURCES[stem]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
+    text = src.read_bytes()
+    # only the shared headers this source includes
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))
+                       if f'#include "{h.name}"'.encode() in text)
+    digest = hashlib.sha256(text + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{stem}-{digest}.so"
     return [_nvcc(), *flags, "-o", str(out), str(src)], out
 

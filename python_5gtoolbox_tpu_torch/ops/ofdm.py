@@ -1,6 +1,7 @@
 """OFDM Tx/Rx low-PHY: IFFT + CP + phase compensation, TS 38.211 5.3.1.
 
-Port of python_5gtoolbox_tpu/ops/ofdm.py (tx_low_phy, rx_low_phy and
+Port of python_5gtoolbox_tpu/ops/ofdm.py (tx_low_phy, rx_low_phy, the
+planar antenna-major TX entries that feed the fused DUC kernels, and
 their plan-time tables): center-mapped ifftshift IFFT with sqrt(N)
 scaling, CP prepend and per-symbol carrier phase compensation on TX;
 the half-CP-advanced FFT window on RX. Slots are a leading batch axis and
@@ -92,13 +93,95 @@ def tx_low_phy(fd_slots: torch.Tensor, scs: int, bw: int,
     scale = (sign * np.sqrt(nfft)).astype(np.complex64)[None, :] \
         * _phase_comp(scs, nfft, carrier_freq_hz)[:, None]
     td = td * torch.as_tensor(scale, device=dev)
-    cps = _cp_table(scs, nfft)
+    return cp_concat(td, _cp_table(scs, nfft))
+
+
+def cp_concat(syms: torch.Tensor, cps) -> torch.Tensor:
+    """(..., 14, nfft) symbols -> (..., slot_samples): each symbol preceded
+    by its last cps[m] samples."""
+    nfft = syms.shape[-1]
     parts = []
     for m in range(14):
-        sym = td[..., m, :]
+        sym = syms[..., m, :]
         parts.append(sym[..., nfft - int(cps[m]):])
         parts.append(sym)
     return torch.cat(parts, dim=-1)
+
+
+def _padded_spec(fd_slots: torch.Tensor, scs: int, bw: int,
+                 carrier_freq_hz: int, nfft: int | None, slot_phase: bool,
+                 start_slot: int) -> tuple[torch.Tensor, int]:
+    """(ant, slots, 14, n_sc) grid -> ((ant, slots, 14, nfft) complex64
+    centre-padded spectrum, nfft), the slot phase folded in before the
+    IFFT (it is linear) when slot_phase is set."""
+    n_sc = fd_slots.shape[-1]
+    if nfft is None:
+        nfft = num.fft_size(num.carrier_prb_size(scs, bw))
+    x = fd_slots.to(torch.complex64)
+    if slot_phase:
+        ph = _slot_phase_const(scs, carrier_freq_hz, fd_slots.shape[1],
+                               start_slot)
+        x = x * torch.as_tensor(ph, device=x.device)[None, :, None, None]
+    lo = (nfft - n_sc) // 2
+    return torch.nn.functional.pad(x, (lo, nfft - n_sc - lo)), nfft
+
+
+def tx_low_phy_sym_planes(fd_slots: torch.Tensor, scs: int, bw: int,
+                          carrier_freq_hz: int = 0, nfft: int | None = None,
+                          slot_phase: bool = False, start_slot: int = 0,
+                          idft: str = "fft") -> torch.Tensor:
+    """Antenna-major per-symbol tx_low_phy: (ant, slots, 14, n_sc) complex
+    -> (2*ant, slots, 14, nfft) float32 planes (real planes first) of the
+    scaled, phase-compensated IFFT outputs, without CP insertion: the CP
+    is assembled inside filters.fir_up2_fused_symbols.
+
+    idft is accepted for signature parity; the JAX package's 'matmul'
+    two-stage DFT is a substitute for its FFT custom call and computes the
+    same values, so both settings go through torch.fft here.
+    """
+    if idft not in ("fft", "matmul"):
+        raise ValueError(f"unknown idft {idft!r}")
+    spec, nfft = _padded_spec(fd_slots, scs, bw, carrier_freq_hz, nfft,
+                              slot_phase, start_slot)
+    td = torch.fft.ifft(spec, dim=-1)
+    sign = np.ones(nfft, np.float32)
+    sign[1::2] = -1.0
+    sp = (sign * np.sqrt(nfft)).astype(np.complex64)[None, :] \
+        * _phase_comp(scs, nfft, carrier_freq_hz)[:, None]
+    td = td * torch.as_tensor(sp, device=td.device)
+    return torch.cat([td.real, td.imag], dim=0).contiguous()
+
+
+def tx_low_phy_planes(fd_slots: torch.Tensor, scs: int, bw: int,
+                      carrier_freq_hz: int = 0, nfft: int | None = None,
+                      pad: tuple[int, int] = (0, 0),
+                      slot_phase: bool = False,
+                      start_slot: int = 0) -> torch.Tensor:
+    """Antenna-major planar tx_low_phy: (ant, slots, 14, n_sc) complex ->
+    (2*ant, pad[0] + slots*slot_samples + pad[1]) float32 planes (real
+    planes first), zero-padded by `pad`. Same values as
+    tx_low_phy(roll_ant=False); callers that need the reference's antenna
+    roll apply it to fd_slots beforehand."""
+    symp = tx_low_phy_sym_planes(fd_slots, scs, bw, carrier_freq_hz, nfft,
+                                 slot_phase, start_slot)
+    flat = cp_concat(symp, _cp_table(scs, symp.shape[-1]))
+    return torch.nn.functional.pad(flat.reshape(symp.shape[0], -1),
+                                   tuple(pad))
+
+
+def tx_spec_planes(fd_slots: torch.Tensor, scs: int, bw: int,
+                   carrier_freq_hz: int = 0, nfft: int | None = None,
+                   slot_phase: bool = False,
+                   start_slot: int = 0) -> torch.Tensor:
+    """(ant, slots, 14, n_sc) complex grid -> (2*ant, slots, 14, nfft)
+    float32 padded-spectrum planes (real planes first) for
+    filters.duc_from_spec_planes, which computes the IDFT itself. Only the
+    centre padding, the optional slot-phase fold and the complex->planar
+    split happen here. (The JAX function returns the same memory viewed
+    as (2*ant, slots, 14*nfft/128, 128).)"""
+    spec, _ = _padded_spec(fd_slots, scs, bw, carrier_freq_hz, nfft,
+                           slot_phase, start_slot)
+    return torch.cat([spec.real, spec.imag], dim=0).contiguous()
 
 
 def rx_low_phy(td_slots: torch.Tensor, scs: int, bw: int,

@@ -5,7 +5,11 @@ Port of scripts/internal/sim_pdsch_throughput_internal.py
 use_batch=True): per SNR point, the slot-batched TX waveform, the channel
 filter, the fading channel with AWGN, the RX filter and low-PHY, then one
 slot-batched RX call per equalizer. Everything stays on the device; the
-decode flags of all points come back in one transfer at the end.
+decode flags of all points come back in one transfer at the end. With
+carrier_config["samplerate_in_mhz"] set (245.76 for the fixed output
+rate) the waveform goes through the fused DUC, the channel runs at that
+rate and the RX through the DDC. Also the OFDM + DUC run of the
+repository's waveform bench (bench.py:bench_ofdm_duc).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from python_5gtoolbox_tpu_torch import resolve_device
 from python_5gtoolbox_tpu_torch.models import channel as chan_mod
+from python_5gtoolbox_tpu_torch.ops import filters
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          fft_size,
@@ -72,6 +77,39 @@ def bench_link_level_config():
               enable_FO_est=False, enable_FO_comp=False)
     ldpc = dict(L=16, algo="min-sum", alpha=0.8, beta=0.3)
     return carrier, pdsch, chan, ce, ldpc
+
+
+def bench_ofdm_duc_config() -> dict:
+    """Shape of the repository's OFDM + DUC bench (bench.py:bench_ofdm_duc):
+    scs 30, BW 100 MHz (nfft 4096, 287-tap FIR), 64 slots, 2 antennas,
+    carrier 3500 MHz, output at 245.76 Msps (oversample 2)."""
+    return dict(scs=30, bw=100, n_slots=64, nant=2,
+                carrier_freq_hz=int(3500e6), out_rate_hz=245.76e6)
+
+
+def ofdm_duc_grid(cfg: dict, seed: int = 0, device=None) -> torch.Tensor:
+    """Random complex64 (ant, slots, 14, n_sc) frequency grid for
+    run_ofdm_duc, unit-variance normal parts drawn with numpy from seed."""
+    dev = resolve_device(device)
+    n_sc = 12 * carrier_prb_size(cfg["scs"], cfg["bw"])
+    shape = (cfg["nant"], cfg["n_slots"], 14, n_sc)
+    rng = np.random.default_rng(seed)
+    re = rng.standard_normal(shape, dtype=np.float32)
+    im = rng.standard_normal(shape, dtype=np.float32)
+    return torch.complex(torch.as_tensor(re, device=dev),
+                         torch.as_tensor(im, device=dev))
+
+
+def run_ofdm_duc(fd: torch.Tensor, cfg: dict | None = None, device=None):
+    """OFDM modulation + DUC of an antenna-major (ant, slots, 14, n_sc)
+    grid at the configuration cfg (default bench_ofdm_duc_config) ->
+    (re, im) float32 waveform planes, each (ant, oversample * slots *
+    slot_samples), on the device (None -> cuda)."""
+    cfg = cfg or bench_ofdm_duc_config()
+    dev = resolve_device(device)
+    return filters.tx_lowphy_duc(fd.to(dev), cfg["scs"], cfg["bw"],
+                                 cfg["carrier_freq_hz"], cfg["out_rate_hz"],
+                                 as_planes="split")
 
 
 def _ce_config(ce_config, chan_cfg, scs):

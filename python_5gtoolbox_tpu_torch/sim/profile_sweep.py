@@ -1,25 +1,28 @@
 """Where the link-level PDSCH sweep spends its time on the card.
 
-    python -m python_5gtoolbox_tpu_torch.sim.profile_sweep [TRACE.json]
+    python -m python_5gtoolbox_tpu_torch.sim.profile_sweep \
+        [--rate-mhz 245.76] [TRACE.json]
 
 Runs the bench configuration (pdsch_throughput.bench_link_level_config,
-6 SNR points x 20 slots) twice after one warm run and prints one JSON
-line each:
+6 SNR points x 20 slots) twice after one warm run, at the carrier rate
+or, with --rate-mhz, with the waveform, the channel and the RX front end
+at that sample rate, and prints one JSON line each:
   * "stages": host wall time per stage of the sweep (tx_waveform,
     channel, rx_lowphy, rx_batch[MMSE-IRC]), each stage ended by
     torch.cuda.synchronize();
   * "kernels": torch.profiler device time per kernel over one sweep
     without stage synchronisation, the sweep's wall time and the share
     of it the device was busy; with a path argument the Chrome trace of
-    that sweep is written there.
+    that sweep is written there; "port_kernels" lists the hand-written
+    kernels among them, whatever their rank.
 Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import json
-import sys
 import time
 
 import torch
@@ -28,6 +31,10 @@ from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
 
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
 N_SLOTS = 20
+# __global__ function names of csrc/*.cu
+PORT_KERNELS = ("banded_fir_kernel", "ldpc_minsum_flooded_kernel",
+                "fir_up2_fused_kernel", "fir_up2_fused_symbols_kernel",
+                "duc_from_spec_kernel")
 
 
 class SyncStageTimer:
@@ -45,8 +52,10 @@ class SyncStageTimer:
         self.seconds[name] += time.perf_counter() - t0
 
 
-def _run_sweep(prof=None):
+def _run_sweep(rate_mhz=None, prof=None):
     carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    if rate_mhz is not None:
+        carrier["samplerate_in_mhz"] = rate_mhz
     return sim.run_pdsch_throughput(carrier, pdsch, chan, SNRS,
                                     ["MMSE-IRC"], n_slots=N_SLOTS,
                                     ce_config=ce, ldpc_config=ldpc, seed=3,
@@ -54,23 +63,29 @@ def _run_sweep(prof=None):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rate-mhz", type=float, default=None,
+                    help="waveform sample rate (default: the carrier rate)")
+    ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
+    args = ap.parse_args()
+    rate = args.rate_mhz
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _run_sweep()                                         # warm
+    _run_sweep(rate)                                     # warm
     timer = SyncStageTimer()
     t0 = time.perf_counter()
-    _run_sweep(timer)
+    _run_sweep(rate, timer)
     wall = time.perf_counter() - t0
     total = sum(timer.seconds.values())
     print(json.dumps(dict(
-        phase="stages", wall_s=wall, seconds=timer.seconds,
+        phase="stages", rate_mhz=rate, wall_s=wall, seconds=timer.seconds,
         share={k: v / total for k, v in timer.seconds.items()})), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _run_sweep()
+        _run_sweep(rate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -85,14 +100,15 @@ def main() -> None:
             rows.append(dict(name=evt.key[:90], calls=evt.count,
                              device_ms=dev_us / 1e3))
     rows.sort(key=lambda r: -r["device_ms"])
+    own = [r for r in rows if any(k in r["name"] for k in PORT_KERNELS)]
     busy = sum(r["device_ms"] for r in rows) / 1e3
-    if len(sys.argv) > 1:
-        prof.export_chrome_trace(sys.argv[1])
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
     print(json.dumps(dict(
-        phase="kernels", wall_s=wall, device_busy_s=busy,
+        phase="kernels", rate_mhz=rate, wall_s=wall, device_busy_s=busy,
         device_busy_share=busy / wall,
         launches=sum(r["calls"] for r in rows), n_kernel_names=len(rows),
-        top=rows[:20])), flush=True)
+        top=rows[:20], port_kernels=own)), flush=True)
 
 
 if __name__ == "__main__":

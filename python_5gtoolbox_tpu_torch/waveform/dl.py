@@ -3,9 +3,14 @@
 Port of the single-PDSCH fast path of python_5gtoolbox_tpu/waveform/dl.py
 (gen_dl_waveform, waveform/dl.py:66-88 and the composed path below it):
 the PDSCH encodes and composes every slot grid at once
-(Pdsch.tx_grid_batch), then one batched OFDM modulation, the slot phase
-compensation and the channel filter. Multi-channel waveforms (SSB,
-CSI-RS, PDCCH) are not ported yet.
+(Pdsch.tx_grid_batch). Without timing-error injection the grid goes
+through filters.tx_lowphy_duc: at the carrier rate OFDM, slot phase and
+FIR; above it (samplerate_in_mhz 245.76) the fused DUC kernel
+(duc_from_spec_planes for nfft >= 1024, fir_up2_fused_symbols below) and
+the remaining halfband stages. With a timing error Dm the OFDM
+modulation runs apart and filters.tx_channel_filter (fir_up2_fused above
+the carrier rate) follows. Multi-channel waveforms (SSB, CSI-RS, PDCCH)
+are not ported yet.
 """
 from __future__ import annotations
 
