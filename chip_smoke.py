@@ -13,7 +13,14 @@ then drives the port's paths through its entry points:
   * the same sweep with waveform, channel and RX front end at 245.76
     Msps (spectrum DUC, halfband up/down stages, FIR, LDPC), and one
     waveform each with a timing error (flat fused FIR + halfband) and at
-    scs 15 / BW 5 (symbol DUC kernel).
+    scs 15 / BW 5 (symbol DUC kernel);
+  * the sweep on a small allocation (MCS 0, 12 RBs: Zc 80), whose decode
+    goes through the small-lifting LDPC kernel;
+  * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
+    400 codewords per SNR point, six decoder settings) and the
+    bit-flipping study's decode, and the decoder bench's shape
+    (bench.py:bench_ldpc: BG1, Zc 384, never-converging LLRs, flooded
+    L=32 / layered L=16 / layered L=16 fast) through ldpc_decode.
 
 The launch counters are zeroed just before each path and read just
 after. Each phase prints JSON lines; the last two lines are the kernel
@@ -48,6 +55,7 @@ from python_5gtoolbox_tpu_torch.ops import filters, ofdm  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf  # noqa: E402
 
@@ -120,7 +128,12 @@ def _library_fir(planes, taps, mode):
                             device=DEV).view(1, 1, n)
         return lambda: torch.nn.functional.conv_transpose1d(
             x, k, stride=2, padding=n // 2 - 1)
-    return None
+    # down2: conv1d pads both ends alike, so with the stage's left padding
+    # the call is one output short at the end
+    k = torch.as_tensor(np.ascontiguousarray(taps[::-1]) * np.sqrt(2),
+                        dtype=torch.float32, device=DEV).view(1, 1, n)
+    return lambda: torch.nn.functional.conv1d(
+        x, k, stride=2, padding=(n - 1) - 2 * ((n + 1) // 4))
 
 
 def phase_fir(rng) -> dict:
@@ -161,12 +174,14 @@ def phase_fir(rng) -> dict:
             p_ms = cuda_ms(lambda: filters.banded_fir_plain(x, taps, mode),
                            10)
             lib = _library_fir(x, taps, mode)
-            if lib is not None:
-                lib_out = lib()[:, 0, :got.shape[1]]
-                lib_err = (lib_out - ref).abs().max().item()
-                l_ms = cuda_ms(lib, 20)
-            else:
-                lib_err = l_ms = None
+            lib_out = lib()[:, 0, :got.shape[1]]
+            lib_err = (lib_out - ref[:, :lib_out.shape[1]]
+                       ).abs().max().item()
+            if not lib_err < FIR_TOL \
+                    or lib_out.shape[1] < got.shape[1] - 1:
+                raise AssertionError(f"library FIR {mode} {label}: not the "
+                                     f"same function ({lib_err})")
+            l_ms = cuda_ms(lib, 20)
             n, (p, t), t_out = len(taps), shape, got.shape[1]
             b_ms, b_by = bound_ms(4 * (p * t + p * t_out + n),
                                   2 * n * p * t_out * (0.5 if mode == "up2"
@@ -193,52 +208,181 @@ def _noisy_codewords(rng, zc, bgn, batch, snr_db):
     return (2 / s2) * (1 - 2 * dn + noise * np.sqrt(s2))
 
 
+def _garbage_llrs(rng, zc, bgn, batch):
+    """LLRs of the decoder bench (bench.py:bench_ldpc): nothing converges,
+    every codeword runs all its iterations and the final rule."""
+    ncols = 68 if bgn == 1 else 52
+    return torch.as_tensor(4.0 * rng.standard_normal(
+        (batch, (ncols - 2) * zc), dtype=np.float32), device=DEV)
+
+
+def _event_ms(fn):
+    """fn() once, its result and its device time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _ldpc_bound(zc, bgn, batch, n_upd):
+    """Per edge and lifting index: 14 operations per update (ext, |.|,
+    min1/min2, sign/zero count, message) + 1 variable-node add, and 2 per
+    syndrome check (one check per update, one more at the end of each
+    codeword); input LLRs read once, bits and flags written once."""
+    rows, _, ncols = ldpc_dec._graph(bgn, zc)
+    n_edges = sum(len(r) for r in rows)
+    n_ops = zc * n_edges * (15 * n_upd + 2 * (n_upd + batch))
+    n_bytes = batch * ((ncols - 2) * zc * 4 + ncols * zc + 4)
+    return bound_ms(n_bytes, n_ops)
+
+
+def _ldpc_case(phase, kernel, llr, zc, bgn, n_iter, schedule="flooded",
+               semantics="exact", n_plain=None, reps=20, **extra):
+    """One decoder kernel (ldpc_minsum or ldpc_minsum_packed) against the
+    plain decoder, bit for bit, then timed -> (row, (ok, full bits)).
+    n_plain: hold only the first n_plain codewords against the plain
+    decoder (a codeword's decode does not depend on its neighbours)."""
+    alpha, beta = 0.8, 0.3
+    batch = llr.shape[0]
+    n_plain = batch if n_plain is None else n_plain
+    iters = torch.zeros(batch, dtype=torch.int32, device=DEV)
+    _, ok1, f1 = kernel(llr, zc, bgn, n_iter, alpha, beta, iters,
+                        schedule=schedule, semantics=semantics)
+    (_, ok2, f2), p_ms = _event_ms(lambda: ldpc_dec._ldpc_decode_plain(
+        llr[:n_plain], zc, bgn, n_iter, alpha, beta, schedule, semantics))
+    n_bit_diff = int((f1[:n_plain] != f2).sum().item())
+    n_ok_diff = int((ok1[:n_plain] != ok2).sum().item())
+    label = f"{phase} BG{bgn}/Zc{zc}/B{batch} {schedule} {semantics}"
+    if n_bit_diff or n_ok_diff:
+        raise AssertionError(f"{label}: {n_bit_diff} bits and {n_ok_diff} "
+                             f"ok flags differ from the plain decoder")
+    k_ms = cuda_ms(lambda: kernel(llr, zc, bgn, n_iter, alpha, beta,
+                                  schedule=schedule, semantics=semantics),
+                   reps)
+    n_upd = int(iters.sum().item())
+    b_ms, b_by = _ldpc_bound(zc, bgn, batch, n_upd)
+    row = dict(bg=bgn, zc=zc, batch=batch, n_iter=n_iter, schedule=schedule,
+               semantics=semantics, converged=int(ok1.sum().item()),
+               mean_updates=n_upd / batch, bits_differing=n_bit_diff,
+               ok_differing=n_ok_diff, kernel_ms=k_ms,
+               codewords_per_s=batch / k_ms * 1e3, plain_ms=p_ms,
+               plain_batch=n_plain, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=0.0, **extra)
+    emit(phase, **row)
+    return row, (ok1, f1)
+
+
 def phase_ldpc(rng) -> dict:
     """ldpc_minsum_flooded against the plain decoder, bit for bit."""
     main = None
-    n_iter, alpha, beta = 16, 0.8, 0.3
+    # the plain decoder is timed on one call per case: let the first such
+    # call in the process (kernel loading, allocator growth) go untimed
+    ldpc_dec._ldpc_decode_plain(_garbage_llrs(rng, 352, 2, 20), 352, 2, 2,
+                                0.8, 0.3)
     # the sweep's code (BG2, Zc 352, 20 codewords) where most codewords
     # converge, a large batch, BG1 at the largest lifting, and a point
     # where none converges (all 16 iterations and the final rule)
     for zc, bgn, batch, snr in [(352, 2, 20, -2.0), (352, 2, 256, -2.0),
                                 (384, 1, 20, 0.0), (352, 2, 20, -6.0)]:
         llr = _noisy_codewords(rng, zc, bgn, batch, snr)
-        iters = torch.zeros(batch, dtype=torch.int32, device=DEV)
-        b1, ok1, f1 = ldpc_dec.ldpc_minsum_flooded(llr, zc, bgn, n_iter,
-                                                   alpha, beta, iters)
-        b2, ok2, f2 = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, n_iter,
-                                                  alpha, beta)
-        torch.cuda.synchronize()
-        n_bit_diff = int((f1 != f2).sum().item())
-        n_ok_diff = int((ok1 != ok2).sum().item())
-        if n_bit_diff or n_ok_diff:
-            raise AssertionError(
-                f"ldpc BG{bgn}/Zc{zc}/B{batch}: {n_bit_diff} bits and "
-                f"{n_ok_diff} ok flags differ from the plain decoder")
-        k_ms = cuda_ms(lambda: ldpc_dec.ldpc_minsum_flooded(
-            llr, zc, bgn, n_iter, alpha, beta), 20)
-        p_ms = cuda_ms(lambda: ldpc_dec._ldpc_decode_plain(
-            llr, zc, bgn, n_iter, alpha, beta), 2)
-        rows, _, ncols = ldpc_dec._graph(bgn, zc)
-        n_edges = sum(len(r) for r in rows)
-        n_upd = int(iters.sum().item())
-        # per edge and lifting index: 14 operations per update (ext,
-        # |.|, min1/min2, sign/zero count, message) + 1 variable-node add,
-        # and 2 per syndrome check (one check per update, one more at the
-        # end of each codeword)
-        n_ops = zc * n_edges * (15 * n_upd + 2 * (n_upd + batch))
-        n_bytes = batch * ((ncols - 2) * zc * 4 + ncols * zc + 4)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        row = dict(bg=bgn, zc=zc, batch=batch, snr_db=snr, n_iter=n_iter,
-                   converged=int(ok1.sum().item()),
-                   mean_updates=n_upd / batch, bits_differing=n_bit_diff,
-                   ok_differing=n_ok_diff, kernel_ms=k_ms, plain_ms=p_ms,
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        emit("ldpc_minsum_flooded", **row)
+        row, _ = _ldpc_case("ldpc_minsum_flooded", ldpc_dec.ldpc_minsum, llr,
+                            zc, bgn, 16, snr_db=snr)
         if main is None:
             main = row
-    main["max_abs_err"] = 0.0
     return main
+
+
+VARIANTS = [("flooded", "exact"), ("flooded", "fast"), ("layered", "exact"),
+            ("layered", "fast")]
+
+
+def _variant_name(schedule, semantics):
+    return f"ldpc_minsum_{schedule}" + ("_fast" if semantics == "fast"
+                                        else "")
+
+
+def phase_ldpc_packed(rng) -> dict:
+    """ldpc_minsum_packed, all four variants, against the plain decoder at
+    the shapes of the decoder studies and of the small-allocation sweep,
+    and the one-block-per-codeword kernel timed on the same inputs.
+    Returns the row at the sweep's shape (flooded, exact)."""
+    main = None
+    cases = [(12, 1, 400, -0.5, "decoder study"),
+             (10, 1, 400, -0.5, "iteration-count study"),
+             (16, 2, 400, 1.0, "bit-flipping study's code"),
+             (80, 2, 20, -2.0, "small-allocation sweep"),
+             (112, 2, 400, -2.0, "hyper-search"),
+             (12, 1, 397, -0.5, "batch not a multiple of the group"),
+             (12, 1, 400, None, "never converging")]
+    for zc, bgn, batch, snr, label in cases:
+        llr = (_garbage_llrs(rng, zc, bgn, batch) if snr is None
+               else _noisy_codewords(rng, zc, bgn, batch, snr))
+        for schedule, semantics in VARIANTS:
+            # the same input through the one-block-per-codeword kernel
+            _, ok_b, f_b = ldpc_dec.ldpc_minsum(
+                llr, zc, bgn, 16, 0.8, 0.3, schedule=schedule,
+                semantics=semantics)
+            batch_ms = cuda_ms(lambda: ldpc_dec.ldpc_minsum(
+                llr, zc, bgn, 16, 0.8, 0.3, schedule=schedule,
+                semantics=semantics), 10)
+            row, (ok_p, f_p) = _ldpc_case(
+                "ldpc_minsum_packed", ldpc_dec.ldpc_minsum_packed, llr, zc,
+                bgn, 16, schedule, semantics, reps=10, label=label,
+                snr_db=snr, batch_layout_ms=batch_ms,
+                group_limit=ldpc_dec.packed_group_limit(zc, bgn))
+            if not (torch.equal(ok_b, ok_p) and torch.equal(f_b, f_p)):
+                raise AssertionError(f"{label}: the two layouts disagree")
+            if label == "small-allocation sweep" and main is None:
+                main = row
+    return main
+
+
+def phase_ldpc_variants(rng) -> tuple[dict, dict]:
+    """ldpc_minsum in the layered schedule and with the fast check node
+    against the plain decoder at the sweep's code and at the width of the
+    decoder bench (bench.py:bench_ldpc: BG1, Zc 384, never-converging
+    LLRs; flooded L=32, layered L=16, layered L=16 fast). Then that bench
+    through the entry point ldpc_decode, with the launches counted.
+    Returns the rows at the bench width and those launch counts."""
+    llr = _noisy_codewords(rng, 352, 2, 20, -2.0)
+    for schedule, semantics in VARIANTS[1:]:
+        _ldpc_case("ldpc_variants", ldpc_dec.ldpc_minsum, llr, 352, 2, 16,
+                   schedule, semantics, snr_db=-2.0)
+    rows = {}
+    zc, bgn = 384, 1
+    llr = _garbage_llrs(rng, zc, bgn, 2048)
+    for schedule, semantics in VARIANTS:
+        n_iter = 32 if schedule == "flooded" else 16
+        row, _ = _ldpc_case("ldpc_variants", ldpc_dec.ldpc_minsum, llr[:512],
+                            zc, bgn, n_iter, schedule, semantics, n_plain=32,
+                            reps=3, label="decoder bench width")
+        big_ms = cuda_ms(lambda: ldpc_dec.ldpc_minsum(
+            llr, zc, bgn, n_iter, 0.8, 0.3, schedule=schedule,
+            semantics=semantics), 2)
+        emit("ldpc_variants", label="decoder bench width, kernel time only",
+             bg=bgn, zc=zc, batch=2048, n_iter=n_iter, schedule=schedule,
+             semantics=semantics, kernel_ms=big_ms,
+             codewords_per_s=2048 / big_ms * 1e3)
+        rows[_variant_name(schedule, semantics)] = row
+    # the bench itself, as a user calls it
+    kernels.reset_launches()
+    for schedule, semantics in VARIANTS:
+        _, ok, _ = ldpc_dec.ldpc_decode(
+            llr[:512], zc, bgn, 32 if schedule == "flooded" else 16,
+            "min-sum", 0.8, 0.3, schedule=schedule, semantics=semantics)
+        if ok.shape != (512,) or bool(ok.any()):
+            raise AssertionError("decoder bench: garbage LLRs converged")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for schedule, semantics in VARIANTS:
+        if launches[_variant_name(schedule, semantics)] != 1:
+            raise AssertionError(f"decoder bench launches: {launches}")
+    emit("ldpc_variants", label="decoder bench through ldpc_decode",
+         launches=launches)
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -423,15 +567,18 @@ def phase_duc(main: dict) -> int:
     return launches["duc_from_spec"]
 
 
-def _sweep(phase: str, rate_mhz, expected) -> dict:
-    """The bench link-level sweep (6 SNR points x 20 slots, warm) at the
-    carrier rate or at rate_mhz, then a clean 30 dB point that must decode
-    exactly. Returns the timed sweep's launch counts; fails if a kernel
-    named in expected was not launched."""
-    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+def _sweep(phase: str, rate_mhz, expected,
+           config=sim.bench_link_level_config,
+           snrs=(0.0, 1.0, 2.0, 3.0, 4.0, 5.0)) -> dict:
+    """A link-level sweep (the bench configuration unless config says
+    otherwise; 6 SNR points x 20 slots, warm) at the carrier rate or at
+    rate_mhz, then a clean 30 dB point that must decode exactly. Returns
+    the timed sweep's launch counts. expected: the kernels that must have
+    been launched, or a dict of exact counts."""
+    carrier, pdsch, chan, ce, ldpc = config()
     if rate_mhz is not None:
         carrier["samplerate_in_mhz"] = rate_mhz
-    snrs = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
+    snrs = list(snrs)
     n_slots = 20
     kw = dict(ceq_algo_list=["MMSE-IRC"], n_slots=n_slots, ce_config=ce,
               ldpc_config=ldpc, seed=3, device=DEV)
@@ -446,8 +593,10 @@ def _sweep(phase: str, rate_mhz, expected) -> dict:
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     for name in expected:
-        if launches[name] <= 0:
-            raise AssertionError(f"the {phase} never launched {name}")
+        if launches[name] <= 0 if not isinstance(expected, dict) \
+                else launches[name] != expected[name]:
+            raise AssertionError(f"the {phase} launched {name} "
+                                 f"{launches[name]} times")
     SUMMARY[f"{phase}_slots_per_s"] = len(snrs) * n_slots / dt
     emit(phase, snr_db=snrs, pass_rate=res["MMSE-IRC"],
          tbs_bits=res["tbs_bits"], slots=len(snrs) * n_slots, seconds=dt,
@@ -486,6 +635,117 @@ def phase_sweep() -> dict:
 def phase_sweep_245() -> dict:
     return _sweep("sweep_245", 245.76,
                   ("duc_from_spec", "banded_fir", "ldpc_minsum_flooded"))
+
+
+def phase_sweep_small_alloc() -> dict:
+    """The sweep on the small allocation (MCS 0, 12 RBs: TBS 736, BG2,
+    Zc 80, one code block per slot) across its waterfall: every decode is
+    one launch of the small-lifting kernel."""
+    return _sweep("sweep_small_alloc", None,
+                  dict(ldpc_minsum_packed=6, ldpc_minsum_flooded=0,
+                       banded_fir=12),
+                  config=sim.small_alloc_link_level_config,
+                  snrs=(-12.0, -11.0, -10.0, -9.0, -8.0, -6.0))
+
+
+def _z_score(p1, p2, n):
+    """Two-sample z of two BLERs over n trials each (the criterion of
+    tools/ldpc_fast_mode.py)."""
+    pool = (p1 + p2) / 2
+    return (p1 - p2) / np.sqrt(max(pool * (1 - pool), 1e-12) * 2 / n)
+
+
+def phase_ldpc_study() -> int:
+    """The decoder BLER study at full width through run_ldpc_simulation
+    (Zc 12, BG1, 400 codewords per point, 5 SNR points, 6 settings, L 16)
+    on the card; the min-sum family again on the CPU at one point (same
+    draws, bit-identical decoders: equal BLER); two statistical anchors.
+    Returns the study's launches of ldpc_minsum_packed."""
+    cfg = dict(study.DECODER_STUDY)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, cfgs, blers = study.run_ldpc_simulation(**cfg, filename=None,
+                                               n_trials=400, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_points = len(cfg["snr_db_list"])
+    n_minsum = sum(c["algo"] != "BP" for c in cfgs)
+    others = sum(v for k, v in launches.items() if k != "ldpc_minsum_packed")
+    if len(cfgs) != 6 or others \
+            or launches["ldpc_minsum_packed"] != n_minsum * n_points:
+        raise AssertionError(f"decoder study launches: {launches}")
+    for c, b in zip(cfgs, blers):
+        if len(b) != n_points or not all(0.0 <= x <= 1.0 for x in b) \
+                or not b[0] > b[-1]:
+            raise AssertionError(f"decoder study {c['name']}: BLER {b}")
+    # the CPU runs the plain decoder on the same draws
+    one = dict(cfg, algo_list=cfg["algo_list"][1:], snr_db_list=[-0.5])
+    on_card = study.run_ldpc_simulation(**one, filename=None, n_trials=400,
+                                        device=DEV)[2]
+    on_cpu = study.run_ldpc_simulation(**one, filename=None, n_trials=400,
+                                       device="cpu")[2]
+    if on_card != on_cpu:
+        raise AssertionError(f"decoder study: card {on_card} != CPU {on_cpu}")
+    # mixed-MS (0.8, 0.3), Zc 10, L 32, -0.5 dB: the band of
+    # tests/test_ldpc.py:test_bler_baseline_mixed_ms (reference 0.070)
+    rng = np.random.default_rng(42)
+    blk, llr = study.gen_ldpc_llr_batch(rng, 10, 1, -0.5, 800, device=DEV)
+    anchor = study.decode_batch(llr, blk, 10, 1, 32, "min-sum", 0.8, 0.3,
+                                device=DEV) / 800
+    if not 0.038 <= anchor <= 0.105:
+        raise AssertionError(f"mixed-MS BLER {anchor} outside 0.038..0.105")
+    # the fast check node stays on the exact curve: |z| <= 3 at 4000 trials
+    fast_vs_exact = []
+    for snr in (-1.0, -0.5, 0.0):
+        blk, llr = study.gen_ldpc_llr_batch(rng, 10, 1, snr, 4000, device=DEV)
+        p = [study.decode_batch(llr, blk, 10, 1, 32, "min-sum", 0.8, 0.3,
+                                semantics=sem, device=DEV) / 4000
+             for sem in ("exact", "fast")]
+        z = _z_score(p[1], p[0], 4000)
+        fast_vs_exact.append(dict(snr_db=snr, exact=p[0], fast=p[1], z=z))
+        if not abs(z) <= 3.0:
+            raise AssertionError(f"fast check node off the exact curve: "
+                                 f"{fast_vs_exact[-1]}")
+    emit("ldpc_study", zc=cfg["zc"], bgn=cfg["bgn"], n_trials=400,
+         snr_db=cfg["snr_db_list"], wall_s=wall,
+         codewords_per_s=400 * n_points * len(cfgs) / wall,
+         launches=launches,
+         bler={f"{c['name']} a={c['alpha']} b={c['beta']}": b
+               for c, b in zip(cfgs, blers)},
+         cpu_equal_at_minus_0_5_db=on_cpu, mixed_ms_zc10_l32=anchor,
+         fast_vs_exact=fast_vs_exact)
+    return launches["ldpc_minsum_packed"]
+
+
+def phase_ldpc_bf() -> None:
+    """ldpc_decode_bf on the card equal to the CPU result at the shape of
+    scripts/sim_ldpc_decoder_bf.py (BG2, Zc 16, 400 codewords, L 10 and
+    20)."""
+    zc, bgn, batch, snr = 16, 2, 400, 5.0
+    rng = np.random.default_rng(5)
+    bc, dn = study.coded_blocks(rng, zc, bgn, batch, "24A", DEV)
+    full = np.concatenate([bc[:, :2 * zc], dn], axis=-1)
+    llr = ((1 - 2 * full) + rng.normal(0, 10 ** (-snr / 20), full.shape)
+           ).astype(np.float32)
+    on_card = torch.as_tensor(llr, device=DEV)
+    out = []
+    for n_iter in (10, 20):
+        bits, ok = ldpc_dec.ldpc_decode_bf(on_card, zc, bgn, n_iter)
+        bits_c, ok_c = ldpc_dec.ldpc_decode_bf(torch.as_tensor(llr), zc, bgn,
+                                               n_iter)
+        if not (torch.equal(bits.cpu(), bits_c)
+                and torch.equal(ok.cpu(), ok_c)):
+            raise AssertionError(f"bit flipping L={n_iter}: card != CPU")
+        ms = cuda_ms(lambda: ldpc_dec.ldpc_decode_bf(on_card, zc, bgn,
+                                                     n_iter), 3)
+        bler = float(np.mean(np.any(bits_c.numpy()[:, :10 * zc] != bc,
+                                    axis=-1)))
+        out.append(dict(L=n_iter, ms=ms, converged=int(ok_c.sum()),
+                        bler=bler))
+    if not 0 < out[1]["converged"] <= batch or out[1]["bler"] > out[0]["bler"]:
+        raise AssertionError(f"bit flipping: {out}")
+    emit("ldpc_bf", zc=zc, bgn=bgn, batch=batch, snr_db=snr, runs=out)
 
 
 def phase_waveforms() -> dict:
@@ -549,20 +809,40 @@ def main() -> None:
     phase_device()
     rows = dict(banded_fir=phase_fir(rng), ldpc_minsum_flooded=phase_ldpc(rng))
     rows.update(phase_duc_kernels(rng))
+    rows["ldpc_minsum_packed"] = phase_ldpc_packed(rng)
+    bench_rows, bench_launches = phase_ldpc_variants(rng)
     launches = phase_sweep()
     launches["duc_from_spec"] = phase_duc(rows)
     phase_sweep_245()
     launches.update(phase_waveforms())
+    launches["ldpc_minsum_packed"] = \
+        phase_sweep_small_alloc()["ldpc_minsum_packed"]
+    phase_ldpc_study()
+    phase_ldpc_bf()
+    for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
+                 "ldpc_minsum_layered_fast"):
+        rows[name] = bench_rows[name]
+        launches[name] = bench_launches[name]
     csrc = "python_5gtoolbox_tpu_torch/csrc/"
     tpu = "python_5gtoolbox_tpu/ops/"
     table = []
     # launches: banded_fir and ldpc_minsum_flooded in the carrier-rate
-    # sweep, duc_from_spec in the OFDM + DUC run, the other two in their
-    # gen_dl_waveform call
+    # sweep, duc_from_spec in the OFDM + DUC run, the two other DUC kernels
+    # in their gen_dl_waveform call, ldpc_minsum_packed in the
+    # small-allocation sweep, the other variants of ldpc_minsum in the
+    # decoder bench through ldpc_decode
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
              "ldpc/pallas_decode.py:138"),
+            ("ldpc_minsum_flooded_fast", "ldpc_minsum.cu",
+             "ldpc/pallas_decode.py:138"),
+            ("ldpc_minsum_layered", "ldpc_minsum.cu",
+             "ldpc/pallas_decode.py:138"),
+            ("ldpc_minsum_layered_fast", "ldpc_minsum.cu",
+             "ldpc/pallas_decode.py:138"),
+            ("ldpc_minsum_packed", "ldpc_minsum_packed.cu",
+             "ldpc/pallas_decode.py:231"),
             ("fir_up2_fused", "fir_up2_fused.cu", "pallas_filters.py:223"),
             ("fir_up2_fused_symbols", "fir_up2_fused_symbols.cu",
              "pallas_filters.py:368"),

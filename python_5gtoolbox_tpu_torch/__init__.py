@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of python_5gtoolbox_tpu (5G NR Release-15 PHY).
 
 Same subpaths and public names as the JAX package. IQ is complex64 end
-to end; five kernels are hand-written CUDA under csrc/, built on first
-use by kernels.py: the banded FIR and the flooded min-sum LDPC decoder
-of the link-level PDSCH sweep, and the three fused DUC kernels of the
-245.76 Msps waveform path (FIR + halfband from a flat plane, from
-per-symbol IFFT outputs with CP insertion, and from the spectrum with
-the IDFT inside). Every other operation is plain PyTorch.
+to end; six kernels are hand-written CUDA under csrc/, one for each
+Pallas kernel of the JAX package, built on first use by kernels.py: the
+banded FIR and the min-sum LDPC decoder of the link-level PDSCH sweep
+(flooded or layered, exact or fast check node), the same decoder for
+small liftings with its whole state in shared memory, and the three
+fused DUC kernels of the 245.76 Msps waveform path (FIR + halfband from
+a flat plane, from per-symbol IFFT outputs with CP insertion, and from
+the spectrum with the IDFT inside). Every other operation is plain
+PyTorch.
 
 Entry points take `device=`; None means the CUDA card, and there is no
 silent CPU fallback: pass device="cpu" to run on the host.

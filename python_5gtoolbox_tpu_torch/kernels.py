@@ -9,8 +9,10 @@ in parallel by build().
 
 LAUNCHES counts the kernel launches made by each wrapper:
 ops/filters.py:banded_fir, fir_up2_fused_planes (counter fir_up2_fused),
-fir_up2_fused_symbols, duc_from_spec_planes (counter duc_from_spec) and
-ops/ldpc/decode.py:ldpc_minsum_flooded.
+fir_up2_fused_symbols, duc_from_spec_planes (counter duc_from_spec),
+ops/ldpc/decode.py:ldpc_minsum (one counter per variant of its kernel:
+ldpc_minsum_flooded, ldpc_minsum_flooded_fast, ldpc_minsum_layered,
+ldpc_minsum_layered_fast) and ldpc_minsum_packed.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # source stem -> extra nvcc flags
 _SOURCES = {
     "banded_fir": [],
-    # the LDPC decoder is bit-exact with the JAX reference: no FMA
-    # contraction
+    # the LDPC decoders are bit-exact with the JAX reference: no FMA
+    # contraction; both share csrc/ldpc_common.cuh
     "ldpc_minsum": ["--fmad=false"],
+    "ldpc_minsum_packed": ["--fmad=false"],
     # the three fused DUC kernels share csrc/duc_common.cuh
     "fir_up2_fused": [],
     "fir_up2_fused_symbols": [],
@@ -40,17 +43,22 @@ _SOURCES = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "banded_fir": ("banded_fir", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "ldpc_minsum": ("ldpc_minsum_flooded",
-                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
-                     _P, _P, _P]),
+    "ldpc_minsum": ("ldpc_minsum",
+                    [_P, _P] + [_I] * 7 + [_F, _F, _I, _I] + [_P] * 5),
+    "ldpc_minsum_packed": ("ldpc_minsum_packed",
+                           [_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 4
+                           + [_P] * 4),
     "fir_up2_fused": ("fir_up2_fused", [_P] * 4 + [_I] * 4 + [_P]),
     "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
                               [_P] * 5 + [_I] * 6 + [_P]),
     "duc_from_spec": ("duc_from_spec", [_P] * 7 + [_I] * 8 + [_P]),
 }
 
-LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0, "fir_up2_fused": 0,
-            "fir_up2_fused_symbols": 0, "duc_from_spec": 0}
+LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0,
+            "ldpc_minsum_flooded_fast": 0, "ldpc_minsum_layered": 0,
+            "ldpc_minsum_layered_fast": 0, "ldpc_minsum_packed": 0,
+            "fir_up2_fused": 0, "fir_up2_fused_symbols": 0,
+            "duc_from_spec": 0}
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -11,5 +11,6 @@ from python_5gtoolbox_tpu_torch.ops.ldpc.segment import (  # noqa: F401
     cb_segment, cb_segment_np,
 )
 from python_5gtoolbox_tpu_torch.ops.ldpc.decode import (  # noqa: F401
-    ldpc_decode, ldpc_minsum_flooded,
+    ldpc_decode, ldpc_decode_bf, ldpc_minsum, ldpc_minsum_flooded,
+    ldpc_minsum_packed,
 )

@@ -79,6 +79,18 @@ def bench_link_level_config():
     return carrier, pdsch, chan, ce, ldpc
 
 
+def small_alloc_link_level_config():
+    """The bench configuration on a small allocation: mcs_index 0 on 12
+    RBs (2 layers kept), the small-packet end of the same sweep. TBS 736,
+    base graph 2, one code block at Zc 80, so the decode goes through the
+    small-lifting kernel. 12 RBs stay above the 8 RBs under which the
+    bench CE window keeps no channel tap."""
+    carrier, pdsch, chan, ce, ldpc = bench_link_level_config()
+    pdsch["mcs_index"] = 0
+    pdsch["ResAlloType1"]["RBSize"] = 12
+    return carrier, pdsch, chan, ce, ldpc
+
+
 def bench_ofdm_duc_config() -> dict:
     """Shape of the repository's OFDM + DUC bench (bench.py:bench_ofdm_duc):
     scs 30, BW 100 MHz (nfft 4096, 287-tap FIR), 64 slots, 2 antennas,

@@ -1,12 +1,13 @@
 """Where the link-level PDSCH sweep spends its time on the card.
 
     python -m python_5gtoolbox_tpu_torch.sim.profile_sweep \
-        [--rate-mhz 245.76] [TRACE.json]
+        [--rate-mhz 245.76] [--small-alloc] [TRACE.json]
 
 Runs the bench configuration (pdsch_throughput.bench_link_level_config,
-6 SNR points x 20 slots) twice after one warm run, at the carrier rate
-or, with --rate-mhz, with the waveform, the channel and the RX front end
-at that sample rate, and prints one JSON line each:
+6 SNR points x 20 slots; with --small-alloc its small allocation,
+small_alloc_link_level_config) twice after one warm run, at the carrier
+rate or, with --rate-mhz, with the waveform, the channel and the RX front
+end at that sample rate, and prints one JSON line each:
   * "stages": host wall time per stage of the sweep (tx_waveform,
     channel, rx_lowphy, rx_batch[MMSE-IRC]), each stage ended by
     torch.cuda.synchronize();
@@ -32,8 +33,9 @@ from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
 N_SLOTS = 20
 # __global__ function names of csrc/*.cu
-PORT_KERNELS = ("banded_fir_kernel", "ldpc_minsum_flooded_kernel",
-                "fir_up2_fused_kernel", "fir_up2_fused_symbols_kernel",
+PORT_KERNELS = ("banded_fir_kernel", "ldpc_minsum_kernel",
+                "ldpc_minsum_packed_kernel", "fir_up2_fused_kernel",
+                "fir_up2_fused_symbols_kernel",
                 "duc_from_spec_kernel")
 
 
@@ -52,8 +54,10 @@ class SyncStageTimer:
         self.seconds[name] += time.perf_counter() - t0
 
 
-def _run_sweep(rate_mhz=None, prof=None):
-    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+def _run_sweep(rate_mhz=None, prof=None, small_alloc=False):
+    carrier, pdsch, chan, ce, ldpc = (sim.small_alloc_link_level_config()
+                                      if small_alloc
+                                      else sim.bench_link_level_config())
     if rate_mhz is not None:
         carrier["samplerate_in_mhz"] = rate_mhz
     return sim.run_pdsch_throughput(carrier, pdsch, chan, SNRS,
@@ -66,26 +70,30 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rate-mhz", type=float, default=None,
                     help="waveform sample rate (default: the carrier rate)")
+    ap.add_argument("--small-alloc", action="store_true",
+                    help="MCS 0 on 12 RBs (Zc 80) in place of the bench "
+                         "allocation")
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
-    rate = args.rate_mhz
+    rate, small = args.rate_mhz, args.small_alloc
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _run_sweep(rate)                                     # warm
+    _run_sweep(rate, small_alloc=small)                  # warm
     timer = SyncStageTimer()
     t0 = time.perf_counter()
-    _run_sweep(rate, timer)
+    _run_sweep(rate, timer, small)
     wall = time.perf_counter() - t0
     total = sum(timer.seconds.values())
     print(json.dumps(dict(
-        phase="stages", rate_mhz=rate, wall_s=wall, seconds=timer.seconds,
+        phase="stages", rate_mhz=rate, small_alloc=small, wall_s=wall,
+        seconds=timer.seconds,
         share={k: v / total for k, v in timer.seconds.items()})), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _run_sweep(rate)
+        _run_sweep(rate, small_alloc=small)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -105,7 +113,8 @@ def main() -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps(dict(
-        phase="kernels", rate_mhz=rate, wall_s=wall, device_busy_s=busy,
+        phase="kernels", rate_mhz=rate, small_alloc=small, wall_s=wall,
+        device_busy_s=busy,
         device_busy_share=busy / wall,
         launches=sum(r["calls"] for r in rows), n_kernel_names=len(rows),
         top=rows[:20], port_kernels=own)), flush=True)

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
-plain PyTorch version, and the batched RX through both kernels.
+plain PyTorch version (the two LDPC kernels in every schedule and check
+node), and the sweeps through them.
 
 Marked `cuda`; every test skips (from the `cuda_device` fixture) where
 torch sees no CUDA device. On the card (whose Python has no jax, which
@@ -164,27 +165,117 @@ def test_fused_wrappers_reject_bad_input(cuda_device):
             fir, hb, np.ones(14, np.complex64))
 
 
+def _noisy_llrs(device, zc, bgn, batch, snr, seed=0):
+    rng = np.random.default_rng(zc + batch + seed)
+    k = (22 if bgn == 1 else 10) * zc
+    bits = torch.as_tensor(rng.integers(0, 2, (batch, k), dtype=np.int8),
+                           device=device)
+    dn = ldpc_encode(bits, bgn).to(torch.float32)
+    s2 = 10 ** (-snr / 10)
+    noise = torch.as_tensor(rng.standard_normal(tuple(dn.shape),
+                                                dtype=np.float32),
+                            device=device)
+    return (2 / s2) * (1 - 2 * dn + noise * np.sqrt(s2))
+
+
+def _assert_same_decode(got, ref):
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("zc,bgn,batch,snr", [(352, 2, 20, -2.0),
                                               (352, 2, 20, -6.0),
                                               (384, 1, 8, 0.0),
                                               (16, 2, 30, 1.0)])
 def test_ldpc_kernel_matches_plain(cuda_device, zc, bgn, batch, snr):
-    rng = np.random.default_rng(zc + batch)
-    k = (22 if bgn == 1 else 10) * zc
-    bits = torch.as_tensor(rng.integers(0, 2, (batch, k), dtype=np.int8),
-                           device=cuda_device)
-    dn = ldpc_encode(bits, bgn).to(torch.float32)
-    s2 = 10 ** (-snr / 10)
-    noise = torch.as_tensor(rng.standard_normal(tuple(dn.shape),
-                                                dtype=np.float32),
-                            device=cuda_device)
-    llr = (2 / s2) * (1 - 2 * dn + noise * np.sqrt(s2))
-    b1, ok1, f1 = ldpc_dec.ldpc_decode(llr, zc, bgn, 12, "min-sum", 0.8, 0.3)
-    b2, ok2, f2 = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 12, 0.8, 0.3)
-    torch.cuda.synchronize()
-    assert torch.equal(f1, f2)
-    assert torch.equal(ok1, ok2)
-    assert torch.equal(b1, b2)
+    llr = _noisy_llrs(cuda_device, zc, bgn, batch, snr)
+    before = kernels.LAUNCHES["ldpc_minsum_flooded"]
+    got = ldpc_dec.ldpc_decode(llr, zc, bgn, 12, "min-sum", 0.8, 0.3,
+                               layout="batch")
+    assert kernels.LAUNCHES["ldpc_minsum_flooded"] == before + 1
+    _assert_same_decode(got, ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 12,
+                                                         0.8, 0.3))
+
+
+VARIANTS = [("flooded", "fast"), ("layered", "exact"), ("layered", "fast")]
+
+
+@pytest.mark.parametrize("schedule,semantics", VARIANTS)
+@pytest.mark.parametrize("zc,bgn,batch,snr", [(352, 2, 6, -2.0),
+                                              (352, 2, 6, -6.0),
+                                              (384, 1, 4, 0.0),
+                                              (16, 2, 30, 1.0)])
+def test_ldpc_kernel_variants_match_plain(cuda_device, zc, bgn, batch, snr,
+                                          schedule, semantics):
+    """ldpc_minsum, layered schedule and fast check node, bit for bit."""
+    llr = _noisy_llrs(cuda_device, zc, bgn, batch, snr)
+    name = f"ldpc_minsum_{schedule}" + ("_fast" if semantics == "fast"
+                                        else "")
+    before = kernels.LAUNCHES[name]
+    got = ldpc_dec.ldpc_decode(llr, zc, bgn, 8, "min-sum", 0.8, 0.3,
+                               schedule=schedule, semantics=semantics,
+                               layout="batch")
+    assert kernels.LAUNCHES[name] == before + 1
+    _assert_same_decode(got, ldpc_dec._ldpc_decode_plain(
+        llr, zc, bgn, 8, 0.8, 0.3, schedule, semantics))
+
+
+@pytest.mark.parametrize("schedule,semantics",
+                         [("flooded", "exact")] + VARIANTS)
+@pytest.mark.parametrize("zc,bgn,batch,snr,group", [
+    (12, 1, 40, -0.5, None),      # the decoder study's code
+    (10, 1, 37, 0.0, 5),          # a batch that is no multiple of the group
+    (16, 2, 30, 1.0, None),
+    (80, 2, 20, -2.0, None),      # the small-allocation sweep's code
+    (80, 2, 5, -8.0, 2),          # does not converge
+    (112, 2, 6, -2.0, None),
+    (2, 1, 300, 2.0, None),       # the smallest lifting, many per block
+])
+def test_ldpc_packed_kernel_matches_plain(cuda_device, zc, bgn, batch, snr,
+                                          group, schedule, semantics):
+    """ldpc_minsum_packed, all four variants, bit for bit; auto layout
+    takes it for these liftings."""
+    llr = _noisy_llrs(cuda_device, zc, bgn, batch, snr)
+    ref = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 8, 0.8, 0.3, schedule,
+                                      semantics)
+    iters = torch.zeros(batch, dtype=torch.int32, device=cuda_device)
+    got = ldpc_dec.ldpc_minsum_packed(llr, zc, bgn, 8, 0.8, 0.3, iters,
+                                      schedule, semantics, group=group)
+    _assert_same_decode(got, ref)
+    assert int(iters.min()) >= 0 and int(iters.max()) <= 8
+    before = dict(kernels.LAUNCHES)
+    got = ldpc_dec.ldpc_decode(llr, zc, bgn, 8, "min-sum", 0.8, 0.3,
+                               schedule=schedule, semantics=semantics)
+    assert kernels.LAUNCHES["ldpc_minsum_packed"] == \
+        before["ldpc_minsum_packed"] + 1
+    _assert_same_decode(got, ref)
+
+
+def test_ldpc_packed_rejects_what_does_not_fit(cuda_device):
+    assert ldpc_dec.packed_group_limit(384, 1) == 0
+    llr = torch.zeros((2, 66 * 384), device=cuda_device)
+    with pytest.raises(ValueError):
+        ldpc_dec.ldpc_decode(llr, 384, 1, 2, layout="packed")
+    llr = torch.zeros((2, 50 * 80), device=cuda_device)
+    with pytest.raises(ValueError):
+        ldpc_dec.ldpc_minsum_packed(llr, 80, 2, 2, group=3)
+
+
+def test_bp_and_bit_flipping_on_card_match_cpu(cuda_device):
+    llr = _noisy_llrs(cuda_device, 16, 2, 24, 3.0)
+    got = ldpc_dec.ldpc_decode(llr, 16, 2, 8, "BP")
+    ref = ldpc_dec.ldpc_decode(llr.cpu(), 16, 2, 8, "BP")
+    assert torch.equal(got[1].cpu(), ref[1])
+    conv = ref[1]
+    assert conv.any() and torch.equal(got[0].cpu()[conv], ref[0][conv])
+    full = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (40, 52 * 16), dtype=np.float32), device=cuda_device)
+    full[:20] = 1.0 + 0.4 * full[:20]
+    got = ldpc_dec.ldpc_decode_bf(full, 16, 2, 10)
+    ref = ldpc_dec.ldpc_decode_bf(full.cpu(), 16, 2, 10)
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1]) and ref[1].any()
 
 
 def test_batched_rx_goes_through_both_kernels(cuda_device):
@@ -210,3 +301,27 @@ def test_oversampled_sweep_goes_through_the_duc_kernels(cuda_device):
     assert res["MMSE-IRC"] == [1.0]
     for name in ("duc_from_spec", "banded_fir", "ldpc_minsum_flooded"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+def test_small_alloc_sweep_goes_through_the_packed_kernel(cuda_device):
+    from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+    carrier, pdsch, chan, ce, ldpc = sim.small_alloc_link_level_config()
+    kernels.reset_launches()
+    res = sim.run_pdsch_throughput(carrier, pdsch, chan, [25.0, -20.0],
+                                   ["MMSE-IRC"], n_slots=4, ce_config=ce,
+                                   ldpc_config=ldpc, device=cuda_device)
+    assert res["MMSE-IRC"] == [1.0, 0.0] and res["tbs_bits"] == 736
+    assert kernels.LAUNCHES["ldpc_minsum_packed"] == 2
+    assert kernels.LAUNCHES["ldpc_minsum_flooded"] == 0
+
+
+def test_decoder_study_on_card_matches_cpu(cuda_device):
+    from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study
+    args = (12, 1, "24A", ["min-sum", "mixed-MS"], [], [], [[0.8, 0.3]],
+            [16], [-1.0, 0.5], None)
+    kernels.reset_launches()
+    got = study.run_ldpc_simulation(*args, n_trials=64, device=cuda_device,
+                                    schedule="layered")
+    assert kernels.LAUNCHES["ldpc_minsum_packed"] == 4
+    assert got == study.run_ldpc_simulation(*args, n_trials=64, device="cpu",
+                                            schedule="layered")

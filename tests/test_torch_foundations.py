@@ -211,6 +211,7 @@ def _forbidden_imports(path: pathlib.Path):
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert PORT / "sim" / "ldpc_decoder.py" in files
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad
 

@@ -1,7 +1,8 @@
 """PyTorch port, LDPC chain: segmentation, encoding, rate matching and
 recovery against the reference goldens and the JAX package, and the
 plain flooded min-sum decoder bit for bit against the JAX decoder
-(backend="jax") on the same noisy codewords.
+(backend="jax") on the same noisy codewords. The other schedules, check
+nodes and algorithms are in tests/test_torch_ldpc_variants.py.
 
 Coded bits and decoded bits must match exactly; recovered LLRs within
 1e-5 (float32 averaging of repeated bits, as the JAX test allows).
@@ -182,11 +183,3 @@ def test_decode_garbage_llrs_match_jax():
                              1.0, 0.0)
     np.testing.assert_array_equal(f2.numpy(), np.asarray(f1))
     np.testing.assert_array_equal(ok2.numpy(), np.asarray(ok1))
-
-
-@pytest.mark.parametrize("kw", [dict(algo="BP"), dict(schedule="layered"),
-                                dict(semantics="fast")])
-def test_decode_unported_variants_raise(kw):
-    llr = torch.zeros((1, 50 * 16))
-    with pytest.raises(NotImplementedError):
-        ldpc_decode(llr, 16, 2, 4, **kw)
