@@ -22,6 +22,12 @@ then drives the port's paths through its entry points:
     (bench.py:bench_ldpc: BG1, Zc 384, never-converging LLRs, flooded
     L=32 / layered L=16 / layered L=16 fast) through ldpc_decode.
 
+The LDPC kernels' times are device times of back-to-back decodes
+(sim/time_ldpc_kernels.py:device_ms; a spin kernel holds the stream while
+the host enqueues them), each beside the time of consecutive calls with
+the host's share (call_ms) and the launch plan (cluster, group, threads,
+barriers per iteration) of ops/ldpc/decode.py:plan_launch.
+
 The launch counters are zeroed just before each path and read just
 after. Each phase prints JSON lines; the last two lines are the kernel
 table and {"ok": true, "device": {...}}. Any failure raises and exits
@@ -57,6 +63,8 @@ from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (  # noqa: E402
+    call_ms, device_ms)
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -71,20 +79,6 @@ SUMMARY: dict = {}             # end-to-end rates, printed again near the end
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps(dict(phase=phase, **kw)), flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -106,7 +100,8 @@ def phase_device() -> str:
     t0 = time.perf_counter()
     secs = kernels.build()
     ptxas = {stem: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for stem, log in kernels.BUILD_LOG.items()}
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -170,8 +165,8 @@ def phase_fir(rng) -> dict:
                 raise AssertionError(f"banded_fir {mode} {label}: max abs "
                                      f"error {err} >= {FIR_TOL}")
             worst = max(worst, err)
-            k_ms = cuda_ms(lambda: filters.banded_fir(x, taps, mode), 20)
-            p_ms = cuda_ms(lambda: filters.banded_fir_plain(x, taps, mode),
+            k_ms = call_ms(lambda: filters.banded_fir(x, taps, mode), 20)
+            p_ms = call_ms(lambda: filters.banded_fir_plain(x, taps, mode),
                            10)
             lib = _library_fir(x, taps, mode)
             lib_out = lib()[:, 0, :got.shape[1]]
@@ -181,7 +176,7 @@ def phase_fir(rng) -> dict:
                     or lib_out.shape[1] < got.shape[1] - 1:
                 raise AssertionError(f"library FIR {mode} {label}: not the "
                                      f"same function ({lib_err})")
-            l_ms = cuda_ms(lib, 20)
+            l_ms = call_ms(lib, 20)
             n, (p, t), t_out = len(taps), shape, got.shape[1]
             b_ms, b_by = bound_ms(4 * (p * t + p * t_out + n),
                                   2 * n * p * t_out * (0.5 if mode == "up2"
@@ -259,18 +254,27 @@ def _ldpc_case(phase, kernel, llr, zc, bgn, n_iter, schedule="flooded",
     if n_bit_diff or n_ok_diff:
         raise AssertionError(f"{label}: {n_bit_diff} bits and {n_ok_diff} "
                              f"ok flags differ from the plain decoder")
-    k_ms = cuda_ms(lambda: kernel(llr, zc, bgn, n_iter, alpha, beta,
-                                  schedule=schedule, semantics=semantics),
-                   reps)
+    def run():
+        return kernel(llr, zc, bgn, n_iter, alpha, beta, schedule=schedule,
+                      semantics=semantics)
+    k_ms, c_ms = device_ms(run, reps), call_ms(run, reps)
     n_upd = int(iters.sum().item())
     b_ms, b_by = _ldpc_bound(zc, bgn, batch, n_upd)
+    plan = ldpc_dec.plan_launch(
+        bgn, zc, batch, schedule,
+        "packed" if kernel is ldpc_dec.ldpc_minsum_packed else "batch",
+        torch.cuda.get_device_properties(DEV).multi_processor_count)
     row = dict(bg=bgn, zc=zc, batch=batch, n_iter=n_iter, schedule=schedule,
                semantics=semantics, converged=int(ok1.sum().item()),
                mean_updates=n_upd / batch, bits_differing=n_bit_diff,
-               ok_differing=n_ok_diff, kernel_ms=k_ms,
+               ok_differing=n_ok_diff, kernel_ms=k_ms, call_ms=c_ms,
                codewords_per_s=batch / k_ms * 1e3, plain_ms=p_ms,
                plain_batch=n_plain, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, max_abs_err=0.0, **extra)
+               bound_by=b_by, max_abs_err=0.0, cluster=plan.cluster,
+               group=plan.group, threads=plan.threads, slice=plan.zl,
+               blocks=plan.blocks, warp_per_codeword=plan.warp,
+               lr_on_chip=plan.lr_on_chip,
+               barriers_per_iteration=plan.barriers, **extra)
     emit(phase, **row)
     return row, (ok1, f1)
 
@@ -325,7 +329,7 @@ def phase_ldpc_packed(rng) -> dict:
             _, ok_b, f_b = ldpc_dec.ldpc_minsum(
                 llr, zc, bgn, 16, 0.8, 0.3, schedule=schedule,
                 semantics=semantics)
-            batch_ms = cuda_ms(lambda: ldpc_dec.ldpc_minsum(
+            batch_ms = device_ms(lambda: ldpc_dec.ldpc_minsum(
                 llr, zc, bgn, 16, 0.8, 0.3, schedule=schedule,
                 semantics=semantics), 10)
             row, (ok_p, f_p) = _ldpc_case(
@@ -338,6 +342,27 @@ def phase_ldpc_packed(rng) -> dict:
             if label == "small-allocation sweep" and main is None:
                 main = row
     return main
+
+
+def phase_ldpc_layout(rng) -> None:
+    """The rule of ldpc_decode(layout="auto") (packed below Zc 128 where
+    the state fits) re-measured around its edge: both kernels on the same
+    input at Zc 112, 120, 128 and 144, both base graphs, B 400."""
+    for zc in (112, 120, 128, 144):
+        for bgn in (1, 2):
+            if ldpc_dec.packed_group_limit(zc, bgn) < 1:
+                continue
+            llr = _noisy_codewords(rng, zc, bgn, 400, -2.0 if bgn == 2
+                                   else 0.0)
+            for schedule in ("flooded", "layered"):
+                ms = {}
+                for name in ("ldpc_minsum", "ldpc_minsum_packed"):
+                    kern = getattr(ldpc_dec, name)
+                    ms[name] = device_ms(lambda: kern(
+                        llr, zc, bgn, 16, 0.8, 0.3, schedule=schedule), 10)
+                emit("ldpc_layout", bg=bgn, zc=zc, batch=400,
+                     schedule=schedule, auto=("packed" if zc < 128
+                                              else "batch"), **ms)
 
 
 def phase_ldpc_variants(rng) -> tuple[dict, dict]:
@@ -359,7 +384,7 @@ def phase_ldpc_variants(rng) -> tuple[dict, dict]:
         row, _ = _ldpc_case("ldpc_variants", ldpc_dec.ldpc_minsum, llr[:512],
                             zc, bgn, n_iter, schedule, semantics, n_plain=32,
                             reps=3, label="decoder bench width")
-        big_ms = cuda_ms(lambda: ldpc_dec.ldpc_minsum(
+        big_ms = device_ms(lambda: ldpc_dec.ldpc_minsum(
             llr, zc, bgn, n_iter, 0.8, 0.3, schedule=schedule,
             semantics=semantics), 2)
         emit("ldpc_variants", label="decoder bench width, kernel time only",
@@ -473,8 +498,8 @@ def _run_case(case, reps_kernel=20, reps_plain=5) -> dict:
     """Kernel against plain on the card, then both timed."""
     name, label, kern, plain, n_bytes, n_ops, extra = case
     err = _check(name, label, kern(), plain())
-    k_ms = cuda_ms(kern, reps_kernel)
-    p_ms = cuda_ms(plain, reps_plain)
+    k_ms = call_ms(kern, reps_kernel)
+    p_ms = call_ms(plain, reps_plain)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     # no single PyTorch call computes FIR + mask + halfband (+ CP, + IDFT)
     row = dict(label=label, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
@@ -551,7 +576,7 @@ def phase_duc(main: dict) -> int:
                        cfg["out_rate_hz"], slot_phase=False)
     err = _check("run_ofdm_duc", "full width", torch.complex(re, im), plain)
     del plain
-    step_ms = cuda_ms(lambda: sim.run_ofdm_duc(fd, cfg, device=DEV), 10)
+    step_ms = call_ms(lambda: sim.run_ofdm_duc(fd, cfg, device=DEV), 10)
     SUMMARY["ofdm_duc_msamples_per_s"] = cfg["nant"] * n_out / step_ms / 1e3
     emit("ofdm_duc", scs=cfg["scs"], bw=cfg["bw"], n_slots=cfg["n_slots"],
          nant=cfg["nant"], out_rate_mhz=cfg["out_rate_hz"] / 1e6,
@@ -737,7 +762,7 @@ def phase_ldpc_bf() -> None:
         if not (torch.equal(bits.cpu(), bits_c)
                 and torch.equal(ok.cpu(), ok_c)):
             raise AssertionError(f"bit flipping L={n_iter}: card != CPU")
-        ms = cuda_ms(lambda: ldpc_dec.ldpc_decode_bf(on_card, zc, bgn,
+        ms = call_ms(lambda: ldpc_dec.ldpc_decode_bf(on_card, zc, bgn,
                                                      n_iter), 3)
         bler = float(np.mean(np.any(bits_c.numpy()[:, :10 * zc] != bc,
                                     axis=-1)))
@@ -810,6 +835,7 @@ def main() -> None:
     rows = dict(banded_fir=phase_fir(rng), ldpc_minsum_flooded=phase_ldpc(rng))
     rows.update(phase_duc_kernels(rng))
     rows["ldpc_minsum_packed"] = phase_ldpc_packed(rng)
+    phase_ldpc_layout(rng)
     bench_rows, bench_launches = phase_ldpc_variants(rng)
     launches = phase_sweep()
     launches["duc_from_spec"] = phase_duc(rows)

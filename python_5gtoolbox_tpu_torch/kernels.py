@@ -44,10 +44,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "banded_fir": ("banded_fir", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "ldpc_minsum": ("ldpc_minsum",
-                    [_P, _P] + [_I] * 7 + [_F, _F, _I, _I] + [_P] * 5),
+                    [_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P] * 5),
     "ldpc_minsum_packed": ("ldpc_minsum_packed",
-                           [_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 4
-                           + [_P] * 4),
+                           [_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 6
+                           + [_P, _I] + [_P] * 4),
     "fir_up2_fused": ("fir_up2_fused", [_P] * 4 + [_I] * 4 + [_P]),
     "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
                               [_P] * 5 + [_I] * 6 + [_P]),

@@ -22,11 +22,12 @@ Each iteration first checks the syndrome of the hard decision (LQ < 0)
 and freezes converged codewords; after n_iter iterations the final rule
 (LQ <= 0) applies.
 
-On a CUDA tensor the min-sum family launches a hand-written kernel:
-csrc/ldpc_minsum_packed.cu (ldpc_minsum_packed: the whole state of
-several codewords in one block's shared memory) for liftings below 128
-whose state fits, csrc/ldpc_minsum.cu (ldpc_minsum: one block per
-codeword) otherwise; both give the same bits. On a CPU tensor it runs
+On a CUDA tensor the min-sum family launches a hand-written kernel, one
+template in csrc/ldpc_common.cuh with two entries:
+csrc/ldpc_minsum_packed.cu (ldpc_minsum_packed: several codewords per
+block) for liftings below 128 whose state fits, csrc/ldpc_minsum.cu
+(ldpc_minsum: one codeword per cluster of blocks) otherwise; plan_launch
+chooses each launch, and both give the same bits. On a CPU tensor it runs
 _ldpc_decode_plain, which mirrors the JAX _ldpc_decode_jit op for op and
 is bit-identical to it and to the TPU kernels. Belief propagation and
 bit flipping have no TPU kernel in the JAX package; they are plain
@@ -34,6 +35,7 @@ tensor code on either device.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -47,6 +49,14 @@ _ATANH_CLAMP = 19.07   # the reference's atanh saturation
 # dynamic shared memory a block may opt in to on sm_90 (227 KB)
 _SMEM_OPTIN_BYTES = 232448
 _PACKED_MAX_GROUP = 32
+_MAX_CLUSTER = 16          # blocks per cluster, non-portable sizes allowed
+# threads per block the kernels are compiled for (csrc/ldpc_common.cuh):
+# flooded, layered, warp-per-codeword layered
+_MAX_THREADS = {"flooded": 1024, "layered": 512, "warp": 256}
+H100_SMS = 132
+# check-node widths of the kernels (csrc/ldpc_common.cuh:check): 6 and 10
+# unrolled, wider rows (BG1's four of degree 19) in a compact loop
+DEGREE_CLASSES = (6, 10, 19)
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,10 +70,38 @@ def _graph(bgn: int, zc: int):
 
 
 @functools.lru_cache(maxsize=None)
+def row_phases(bgn: int, zc: int) -> tuple[int, ...]:
+    """Phase boundaries of the layered sweep on the card: consecutive
+    check rows that share no column form one phase (phase k is rows
+    [ptr[k], ptr[k+1])). No entry is read by one row of a phase and written
+    by another, so sweeping a phase's rows at once gives the bits of the
+    row-by-row sweep. 32 phases for BG1, 28 for BG2, at every lifting."""
+    rows, nrows, _ = _graph(bgn, zc)
+    ptr, seen = [0], set()
+    for r, edges in enumerate(rows):
+        cols = {c for c, _ in edges}
+        if cols & seen:
+            ptr.append(r)
+            seen = set()
+        seen |= cols
+    return tuple(ptr + [nrows])
+
+
+def row_degree_classes(bgn: int, zc: int) -> tuple[int, ...]:
+    """The check-node width each row runs at in the kernels: the smallest
+    of DEGREE_CLASSES (csrc/ldpc_common.cuh:check) that holds its degree."""
+    rows, _, _ = _graph(bgn, zc)
+    return tuple(min(w for w in DEGREE_CLASSES if w >= len(e)) for e in rows)
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_tables(bgn: int, zc: int) -> np.ndarray:
-    """int32 [row_ptr | e_col | e_shift | col_ptr | col_edge] for the
-    kernels; col_edge lists each column's edges in ascending row order,
-    the JAX decoder's variable-node summation order."""
+    """int32 [row_ptr | row_edge | col_ptr | col_edge | phase_ptr |
+    row_order | col_order] for the kernels (csrc/ldpc_common.cuh): row_edge
+    = col | shift << 16, columns ascending within a row; col_edge the edge
+    ids of each column in ascending row order, the JAX decoder's
+    variable-node summation order; phase_ptr from row_phases; the rows and
+    the columns by degree, widest first (ties in order)."""
     rows, nrows, ncols = _graph(bgn, zc)
     row_ptr = np.cumsum([0] + [len(r) for r in rows])
     e_col = np.array([c for r in rows for c, _ in r])
@@ -72,8 +110,10 @@ def _kernel_tables(bgn: int, zc: int) -> np.ndarray:
                                for c in range(ncols)])
     col_ptr = np.cumsum([0] + [int((e_col == c).sum())
                                for c in range(ncols)])
-    return np.concatenate([row_ptr, e_col, e_shift, col_ptr, col_edge]
-                          ).astype(np.int32)
+    return np.concatenate([
+        row_ptr, e_col | e_shift << 16, col_ptr, col_edge,
+        row_phases(bgn, zc), np.argsort(-np.diff(row_ptr), kind="stable"),
+        np.argsort(-np.diff(col_ptr), kind="stable")]).astype(np.int32)
 
 
 def _fwd(x, p):
@@ -240,17 +280,190 @@ def _ldpc_decode_plain(llr_in: torch.Tensor, zc: int, bgn: int,
 
 
 # ---------------------------------------------------------------------------
-# The two CUDA kernels
+# The two CUDA kernels and their launch planner
 # ---------------------------------------------------------------------------
+
+def _lanes(zl: int, group: int) -> tuple[int, int, int]:
+    """(S, codewords per sub-task, sub-tasks per row): a sub-task is 32
+    lanes, S = pow2ceil(zl) up to 32 lanes per codeword
+    (csrc/ldpc_common.cuh:launch)."""
+    seg = min(32, 1 << max(0, (zl - 1).bit_length()))
+    cpw = 32 // seg
+    return seg, cpw, -(-group // cpw) * -(-zl // seg)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(bgn: int, zc: int, group: int, zl: int,
+               lr_on_chip: bool = True) -> int:
+    """Shared memory per block of the decoder kernels for G = group
+    codewords and slices of zl lifting indices: the table blob, four flags
+    per codeword and the sub-task table, then LQ and (lr_on_chip) LR in
+    float32 (csrc/ldpc_common.cuh:smem_bytes)."""
+    rows, nrows, ncols = _graph(bgn, zc)
+    n_edges = sum(len(e) for e in rows)
+    ntab = (nrows + 1 + 2 * n_edges + ncols + 1
+            + len(row_phases(bgn, zc)) + nrows + ncols)
+    head = (ntab + 4 * group + _lanes(zl, group)[2] + 3) & ~3
+    return 4 * (head + group * (ncols + (n_edges if lr_on_chip else 0)) * zl)
+
+
+def cluster_slices(zc: int) -> dict[int, int]:
+    """Blocks per codeword K -> lifting indices per block zl: K = 1 holds
+    the whole lifting; K > 1 cuts it into power-of-two slices of at least
+    8 (the kernel finds an entry's block by a shift), K <= 16."""
+    out, zl = {1: zc}, 8
+    while zl < zc:
+        k = -(-zc // zl)
+        if k <= _MAX_CLUSTER:
+            out[k] = zl
+        zl *= 2
+    return dict(sorted(out.items()))
+
+
+@functools.lru_cache(maxsize=None)
+def packed_group_limit(zc: int, bgn: int) -> int:
+    """How many codewords' whole decode state (LQ and LR, float32) one
+    block's shared memory holds beside the tables and flags; 0 where not
+    even one fits."""
+    g = 0
+    while g < _PACKED_MAX_GROUP and \
+            smem_bytes(bgn, zc, g + 1, zc) <= _SMEM_OPTIN_BYTES:
+        g += 1
+    return g
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One launch of a decoder kernel: `cluster` blocks of `threads`
+    threads per cluster, `group` codewords per cluster, `zl` lifting
+    indices per block, `smem` bytes of shared memory per block; `warp`:
+    the warp-per-codeword layered kernel; `lr_on_chip`: LR in shared
+    memory (else in a device-memory scratch); `barriers`: block or cluster
+    barriers per iteration (3 flooded; 2 + row phases layered; 0 warp)."""
+    cluster: int
+    group: int
+    zl: int
+    threads: int
+    warp: bool
+    blocks: int
+    smem: int
+    barriers: int
+    lr_on_chip: bool = True
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_launch(bgn: int, zc: int, batch: int, schedule: str = "flooded",
+                layout: str = "batch", n_sm: int = H100_SMS,
+                group: int | None = None, cluster: int | None = None,
+                threads: int | None = None,
+                lr_on_chip: bool | None = None) -> LaunchPlan:
+    """The launch of ldpc_minsum (layout "batch": one codeword per
+    cluster) or ldpc_minsum_packed ("packed"). Defaults, from
+    sim/tune_ldpc_packed.py on the H100:
+      * group (packed only): as many codewords per block as spread the
+        batch over at most n_sm blocks, at most packed_group_limit; for the
+        warp-per-codeword layered kernel (Zc <= 32) the codewords one warp
+        holds side by side (32 / pow2ceil(Zc));
+      * cluster: the smallest K whose slice fits; flooded, raised while
+        the blocks still fit one per SM (a second wave of 1024-thread
+        blocks costs more than the wider cluster saves); layered stays at
+        the smallest K, whose cluster barriers (one per row phase) are the
+        cheapest;
+      * LR stays in shared memory, except in the layered schedule where
+        one block does not hold a codeword and its clusters would not fit
+        in one wave (the decoder bench's BG1 / Zc 384 / B 512): there a
+        row phase costs the latency of a check node and a barrier whatever
+        its width, so a block holds LQ only (the whole lifting, two blocks
+        per SM) and LR goes to a device-memory scratch;
+      * threads: one warp per (row or column, sub-task), at most 1024
+        flooded and 512 layered (the kernels' launch bounds); one warp per
+        block's codeword group for the warp kernel (at most 256).
+    group, cluster and threads override the defaults; lr_on_chip=False
+    forces LR into device memory (one block per cluster). ValueError
+    where they do not fit."""
+    rows, nrows, ncols = _graph(bgn, zc)
+    packed = layout == "packed"
+    slices = cluster_slices(zc)
+    warp = packed and schedule == "layered" and zc <= 32
+    if packed:
+        g_max = packed_group_limit(zc, bgn)
+        if g_max < 1:
+            raise ValueError(f"ldpc_minsum_packed: the decode state of "
+                             f"BG{bgn} / Zc {zc} does not fit in shared "
+                             f"memory")
+        if group is None:
+            group = min(g_max, _lanes(zc, 1)[1] if warp
+                        else max(1, -(-batch // n_sm)))
+        if not 1 <= group <= g_max:
+            raise ValueError(f"group must be in 1..{g_max}")
+    elif group not in (None, 1):
+        raise ValueError("ldpc_minsum decodes one codeword per cluster")
+    else:
+        group = 1
+    fit = [k for k, zl in slices.items()
+           if smem_bytes(bgn, zc, group, zl) <= _SMEM_OPTIN_BYTES]
+    if warp:
+        fit = [k for k in fit if k == 1]
+    n_clusters = -(-batch // group)
+    if lr_on_chip is None:
+        lr_on_chip = not (schedule == "layered" and cluster in (None, 1)
+                          and 1 not in fit
+                          and n_clusters * min(fit, default=n_sm) > n_sm)
+    max_threads = _MAX_THREADS["warp" if warp else schedule]
+    if not lr_on_chip:
+        if (cluster not in (None, 1) or warp or smem_bytes(
+                bgn, zc, group, zc, False) > _SMEM_OPTIN_BYTES):
+            raise ValueError("LR in device memory takes one block per "
+                             "cluster whose LQ fits in shared memory")
+        threads = threads or min(512, 32 * ncols * group)
+        if threads % 32 or not 32 <= threads <= max_threads:
+            raise ValueError(f"threads must be a multiple of 32 in "
+                             f"32..{max_threads}")
+        return LaunchPlan(1, group, zc, threads, False,
+                          n_clusters, smem_bytes(bgn, zc, group, zc, False),
+                          3 if schedule == "flooded"
+                          else 2 + len(row_phases(bgn, zc)) - 1, False)
+    if cluster is None:
+        if not fit:
+            raise ValueError(f"BG{bgn} / Zc {zc}: no cluster of at most "
+                             f"{_MAX_CLUSTER} blocks holds the state")
+        cluster = fit[0]
+        if schedule == "flooded":
+            cluster = max([k for k in fit if n_clusters * k <= n_sm],
+                          default=cluster)
+    if cluster not in fit:
+        raise ValueError(f"cluster {cluster} does not fit BG{bgn} / Zc "
+                         f"{zc} with group {group}: one of {fit}")
+    zl = slices[cluster]
+    _, cpw, nsub = _lanes(zl, group)
+    if threads is None:
+        threads = min(max_threads, 32 * (-(-group // cpw) if warp
+                                         else ncols * nsub))
+    if threads % 32 or not 32 <= threads <= max_threads:
+        raise ValueError(f"threads must be a multiple of 32 in "
+                         f"32..{max_threads}")
+    barriers = (0 if warp else 3 if schedule == "flooded"
+                else 2 + len(row_phases(bgn, zc)) - 1)
+    return LaunchPlan(cluster, group, zl, threads, warp,
+                      n_clusters * cluster,
+                      smem_bytes(bgn, zc, group, zl), barriers)
+
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(bgn: int, zc: int, device: torch.device):
     return torch.as_tensor(_kernel_tables(bgn, zc), device=device)
 
 
-def _kernel_args(name, llr_in, zc, bgn, schedule, semantics, iters_out):
-    """Checked inputs shared by both wrappers -> (llr0, tab, full, ok,
-    iters pointer, nrows, ncols, n_edges, maxd)."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _decode_on_card(name, llr_in, zc, bgn, n_iter, alpha, beta, iters_out,
+                    schedule, semantics, layout, group, cluster, threads,
+                    lr_on_chip):
+    """Checks the inputs, plans and launches one of the two kernels ->
+    (bits (B, K) int8, ok (B,) bool, full_bits (B, ncols*Zc) int8)."""
     if llr_in.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor")
     if llr_in.dtype != torch.float32 or llr_in.dim() != 2:
@@ -269,44 +482,57 @@ def _kernel_args(name, llr_in, zc, bgn, schedule, semantics, iters_out):
                                   or iters_out.device != dev):
         raise ValueError("iters_out must be a (B,) int32 tensor on the "
                          "input's device")
-    llr0 = torch.cat([llr_in.new_zeros((b, 2 * zc)), llr_in],
-                     dim=-1).contiguous()
+    plan = plan_launch(bgn, zc, b, schedule, layout, _sm_count(dev), group,
+                       cluster, threads, lr_on_chip)
+    llr_in = llr_in.contiguous()
     full = torch.empty((b, ncols * zc), dtype=torch.int8, device=dev)
-    ok = torch.empty(b, dtype=torch.int32, device=dev)
-    return (llr0, _device_tables(bgn, zc, dev), full, ok,
-            None if iters_out is None else iters_out.data_ptr(),
+    ok = torch.empty(b, dtype=torch.bool, device=dev)
+    n_edges = sum(len(e) for e in rows)
+    lr = (None if plan.lr_on_chip else
+          torch.empty((b, n_edges * zc), dtype=torch.float32, device=dev))
+    args = [llr_in.data_ptr(), _device_tables(bgn, zc, dev).data_ptr(), b,
             nrows, ncols, sum(len(e) for e in rows),
-            max(len(e) for e in rows))
+            len(row_phases(bgn, zc)) - 1, zc, n_iter, float(alpha),
+            float(beta), int(schedule == "layered"),
+            int(semantics == "fast")]
+    lr_ptr = None if lr is None else lr.data_ptr()
+    if layout == "packed":
+        args += [plan.group, plan.cluster, plan.zl, plan.threads, lr_ptr,
+                 int(plan.warp)]
+    else:
+        args += [plan.cluster, plan.zl, plan.threads, lr_ptr]
+    rc = getattr(kernels.library(name), name)(
+        *args, full.data_ptr(), ok.data_ptr(),
+        None if iters_out is None else iters_out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(name, rc)
+    k = (22 if bgn == 1 else 10) * zc
+    return full[:, :k], ok, full
 
 
 def ldpc_minsum(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
                 alpha: float = 1.0, beta: float = 0.0,
                 iters_out: torch.Tensor | None = None,
-                schedule: str = "flooded", semantics: str = "exact"):
+                schedule: str = "flooded", semantics: str = "exact",
+                cluster: int | None = None, threads: int | None = None,
+                lr_on_chip: bool | None = None):
     """Decode (B, N) punctured-codeword LLRs on the card with the
-    hand-written kernel csrc/ldpc_minsum.cu, one block per codeword;
-    replaces python_5gtoolbox_tpu/ops/ldpc/pallas_decode.py:_make_kernel
-    (both schedules, both check nodes). Returns (bits (B, K) int8, ok (B,)
-    bool, full_bits (B, ncols*Zc) int8). iters_out, a (B,) int32 CUDA
-    tensor, receives the number of updates each codeword ran (it stops
-    once its syndrome is zero). The launch is counted in
+    hand-written kernel csrc/ldpc_minsum.cu, one codeword per cluster of
+    blocks (plan_launch); replaces
+    python_5gtoolbox_tpu/ops/ldpc/pallas_decode.py:_make_kernel (both
+    schedules, both check nodes). Returns (bits (B, K) int8, ok (B,) bool,
+    full_bits (B, ncols*Zc) int8). iters_out, a (B,) int32 CUDA tensor,
+    receives the number of updates each codeword ran (it stops once its
+    syndrome is zero). cluster, threads and lr_on_chip override the
+    planner's choice (ValueError where they do not fit; a launch the card
+    refuses raises RuntimeError). The launch is counted in
     kernels.LAUNCHES["ldpc_minsum_<schedule>[_fast]"]."""
-    llr0, tab, full, ok, iters, nrows, ncols, n_edges, maxd = _kernel_args(
-        "ldpc_minsum", llr_in, zc, bgn, schedule, semantics, iters_out)
-    b = llr_in.shape[0]
-    lr = torch.empty((b, n_edges * zc), dtype=torch.float32,
-                     device=llr_in.device)
-    fn = kernels.library("ldpc_minsum").ldpc_minsum
-    rc = fn(llr0.data_ptr(), tab.data_ptr(), b, nrows, ncols, n_edges, zc,
-            maxd, n_iter, float(alpha), float(beta),
-            int(schedule == "layered"), int(semantics == "fast"),
-            lr.data_ptr(), full.data_ptr(), ok.data_ptr(), iters,
-            torch.cuda.current_stream(llr_in.device).cuda_stream)
-    kernels.check("ldpc_minsum", rc)
+    out = _decode_on_card("ldpc_minsum", llr_in, zc, bgn, n_iter, alpha,
+                          beta, iters_out, schedule, semantics, "batch", None,
+                          cluster, threads, lr_on_chip)
     kernels.LAUNCHES[f"ldpc_minsum_{schedule}"
                      + ("_fast" if semantics == "fast" else "")] += 1
-    k = (22 if bgn == 1 else 10) * zc
-    return full[:, :k], ok.to(torch.bool), full
+    return out
 
 
 def ldpc_minsum_flooded(llr_in: torch.Tensor, zc: int, bgn: int,
@@ -316,65 +542,24 @@ def ldpc_minsum_flooded(llr_in: torch.Tensor, zc: int, bgn: int,
     return ldpc_minsum(llr_in, zc, bgn, n_iter, alpha, beta, iters_out)
 
 
-def packed_group_limit(zc: int, bgn: int) -> int:
-    """How many codewords' whole decode state (LQ and LR, float32) one
-    block's shared memory holds beside the edge tables and two flags per
-    codeword; 0 where not even one fits."""
-    rows, nrows, ncols = _graph(bgn, zc)
-    n_edges = sum(len(e) for e in rows)
-    ntab = nrows + 1 + 3 * n_edges + ncols + 1
-    per_cw = 4 * (ncols + n_edges) * zc + 8
-    return min(_PACKED_MAX_GROUP, (_SMEM_OPTIN_BYTES - 4 * ntab) // per_cw)
-
-
 def ldpc_minsum_packed(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
                        alpha: float = 1.0, beta: float = 0.0,
                        iters_out: torch.Tensor | None = None,
                        schedule: str = "flooded", semantics: str = "exact",
-                       group: int | None = None, threads: int | None = None):
+                       group: int | None = None, threads: int | None = None,
+                       cluster: int | None = None):
     """The small-lifting decoder csrc/ldpc_minsum_packed.cu; replaces
     python_5gtoolbox_tpu/ops/ldpc/pallas_decode.py:_make_kernel_packed.
-    Same contract and same bits as ldpc_minsum. A block decodes `group`
-    codewords whose LQ and LR all stay in its shared memory; by default
-    the group is the smallest that still gives every SM a block, at most
-    packed_group_limit(zc, bgn). group and threads (per block) override
-    the defaults, for measurements. Raises ValueError where the state of
-    one codeword does not fit."""
-    llr0, tab, full, ok, iters, nrows, ncols, n_edges, maxd = _kernel_args(
-        "ldpc_minsum_packed", llr_in, zc, bgn, schedule, semantics,
-        iters_out)
-    b, dev = llr_in.shape[0], llr_in.device
-    g_max = packed_group_limit(zc, bgn)
-    if g_max < 1:
-        raise ValueError(f"ldpc_minsum_packed: the decode state of BG{bgn} / "
-                         f"Zc {zc} does not fit in shared memory")
-    if group is None:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        group = min(g_max, max(1, -(-b // n_sm)))
-    if not 1 <= group <= g_max:
-        raise ValueError(f"group must be in 1..{g_max}")
-    if threads is None:
-        # one task per (codeword, row, lifting index) in a flooded
-        # iteration. A layered row has only group * zc tasks, but the
-        # syndrome and bit passes between the sweeps have nrows times as
-        # many, and a barrier costs more the more warps wait at it: four
-        # threads per row task, at least 256, measured best on the H100
-        # (sim/tune_ldpc_packed.py)
-        tasks = group * zc * (nrows if schedule == "flooded" else 4)
-        floor = 32 if schedule == "flooded" else 256
-        threads = min(1024, max(floor, -(-tasks // 32) * 32))
-    if threads % 32 or not 32 <= threads <= 1024:
-        raise ValueError("threads must be a multiple of 32 in 32..1024")
-    fn = kernels.library("ldpc_minsum_packed").ldpc_minsum_packed
-    rc = fn(llr0.data_ptr(), tab.data_ptr(), b, nrows, ncols, n_edges, zc,
-            maxd, n_iter, float(alpha), float(beta),
-            int(schedule == "layered"), int(semantics == "fast"), group,
-            threads, full.data_ptr(), ok.data_ptr(), iters,
-            torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check("ldpc_minsum_packed", rc)
+    Same contract and same bits as ldpc_minsum. A cluster (one block by
+    default) decodes `group` codewords whose LQ and LR all stay in shared
+    memory; plan_launch gives the defaults. group, threads and cluster
+    override them, for measurements. Raises ValueError where the state of
+    one codeword does not fit one block."""
+    out = _decode_on_card("ldpc_minsum_packed", llr_in, zc, bgn, n_iter,
+                          alpha, beta, iters_out, schedule, semantics,
+                          "packed", group, cluster, threads, True)
     kernels.LAUNCHES["ldpc_minsum_packed"] += 1
-    k = (22 if bgn == 1 else 10) * zc
-    return full[:, :k], ok.to(torch.bool), full
+    return out
 
 
 def ldpc_decode(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,

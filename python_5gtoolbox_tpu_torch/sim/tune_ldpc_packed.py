@@ -1,15 +1,20 @@
-"""Time ldpc_minsum_packed over its two launch parameters on the card.
+"""Time the two min-sum LDPC kernels over their launch parameters on the
+card.
 
     python -m python_5gtoolbox_tpu_torch.sim.tune_ldpc_packed
 
 For the shapes of the decoder studies and of the small-allocation sweep
-and for both schedules, decodes the same noisy codewords (the decoder
-study's stimulus) with every (group, threads) pair the kernel takes,
-checks each result against the default launch bit for bit, and prints
-one JSON line per shape and schedule: the default launch's ms, the six
-fastest pairs and all times.
-The wrapper's defaults (ops/ldpc/decode.py:ldpc_minsum_packed) were
-chosen from this output. Needs a CUDA device.
+(ldpc_minsum_packed) and of the bench sweep and the decoder bench
+(ldpc_minsum), and for both schedules, decodes the same codewords (the
+decoder study's stimulus; never-converging LLRs at the decoder bench's
+shape) with every cluster size K the lifting allows, groups G across their
+range, several thread counts and (ldpc_minsum) LR in device memory
+(suffix "dev"), checks each result against the planned
+launch bit for bit, and prints one JSON line per kernel, shape and
+schedule: the planned launch and its device time per decode (launches
+back to back, time_ldpc_kernels.device_ms), the six fastest (K, G,
+threads) and all times. The planner's defaults (ops/ldpc/decode.py:plan_launch)
+were chosen from this output. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -20,55 +25,96 @@ import torch
 
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode
 from python_5gtoolbox_tpu_torch.sim.ldpc_decoder import gen_ldpc_llr_batch
+from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import device_ms
 
-# (zc, bgn, batch, snr_db)
-SHAPES = [(12, 1, 400, -0.5), (16, 2, 400, 1.0), (80, 2, 20, -2.0),
-          (112, 2, 400, -2.0)]
-N_ITER, ALPHA, BETA = 16, 0.8, 0.3
+# (kernel, zc, bgn, batch, snr_db or None for never-converging LLRs, L)
+SHAPES = [("ldpc_minsum_packed", 12, 1, 400, -0.5, 16),
+          ("ldpc_minsum_packed", 16, 2, 400, 1.0, 16),
+          ("ldpc_minsum_packed", 80, 2, 20, -2.0, 16),
+          ("ldpc_minsum_packed", 112, 2, 400, -2.0, 16),
+          ("ldpc_minsum", 352, 2, 20, -2.0, 16),
+          ("ldpc_minsum", 384, 1, 512, None, 16)]
+ALPHA, BETA = 0.8, 0.3
+THREADS = (128, 256, 512, 1024)
 
 
-def _ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _launches(name, zc, bgn, schedule):
+    """Every (cluster, group, threads) the planner accepts for this shape,
+    groups 1, 2, 3, 4, 6, 8, 12 and the limit."""
+    layout = "packed" if name == "ldpc_minsum_packed" else "batch"
+    g_max = decode.packed_group_limit(zc, bgn) if layout == "packed" else 1
+    out = []
+    for group in sorted({1, 2, 3, 4, 6, 8, 12, g_max}):
+        for cluster in decode.cluster_slices(zc):
+            for threads in THREADS:
+                if group > g_max:
+                    continue
+                try:
+                    decode.plan_launch(bgn, zc, 1, schedule, layout,
+                                       group=group, cluster=cluster,
+                                       threads=threads)
+                except ValueError:
+                    continue
+                out.append((cluster, group, threads))
+    return out
 
 
 def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     print(torch.cuda.get_device_name(0), flush=True)
-    for zc, bgn, batch, snr in SHAPES:
-        _, llr = gen_ldpc_llr_batch(rng, zc, bgn, snr, batch, device=dev)
-        llr = torch.as_tensor(llr, device=dev)
-        g_max = decode.packed_group_limit(zc, bgn)
+    for name, zc, bgn, batch, snr, n_iter in SHAPES:
+        if snr is None:
+            ncols = 68 if bgn == 1 else 52
+            llr = torch.as_tensor(4.0 * rng.standard_normal(
+                (batch, (ncols - 2) * zc), dtype=np.float32), device=dev)
+        else:
+            _, llr = gen_ldpc_llr_batch(rng, zc, bgn, snr, batch, device=dev)
+            llr = torch.as_tensor(llr, device=dev)
+        kern = getattr(decode, name)
+        layout = "packed" if name == "ldpc_minsum_packed" else "batch"
         for schedule in ("flooded", "layered"):
             def run(**kw):
-                return decode.ldpc_minsum_packed(
-                    llr, zc, bgn, N_ITER, ALPHA, BETA, schedule=schedule,
-                    **kw)
+                return kern(llr, zc, bgn, n_iter, ALPHA, BETA,
+                            schedule=schedule, **kw)
             ref = run()
             times = {}
-            for group in sorted({1, 2, 3, 4, 6, 8, 12, g_max}):
-                for threads in (64, 128, 256, 512, 1024):
-                    if group > min(g_max, threads):
+            for cluster, group, threads in _launches(name, zc, bgn,
+                                                     schedule):
+                kw = dict(cluster=cluster, threads=threads)
+                if layout == "packed":
+                    kw["group"] = group
+                out = run(**kw)
+                if not (torch.equal(out[2], ref[2])
+                        and torch.equal(out[1], ref[1])):
+                    raise AssertionError(f"{name} {kw}: other bits")
+                times[f"k{cluster}g{group}t{threads}"] = device_ms(
+                    lambda: run(**kw), 3 if batch > 400 else 10)
+            if layout == "batch":
+                # LQ in one block, LR in device memory
+                for threads in THREADS:
+                    kw = dict(cluster=1, threads=threads, lr_on_chip=False)
+                    try:
+                        decode.plan_launch(bgn, zc, 1, schedule, layout,
+                                           **kw)
+                    except ValueError:
                         continue
-                    out = run(group=group, threads=threads)
-                    if not torch.equal(out[2], ref[2]):
-                        raise AssertionError(f"group {group}, threads "
-                                             f"{threads}: other bits")
-                    times[f"g{group}t{threads}"] = _ms(
-                        lambda: run(group=group, threads=threads))
+                    if not torch.equal(run(**kw)[2], ref[2]):
+                        raise AssertionError(f"{name} {kw}: other bits")
+                    times[f"k1g1t{threads}dev"] = device_ms(
+                        lambda: run(**kw), 3 if batch > 400 else 10)
             best = sorted(times.items(), key=lambda kv: kv[1])[:6]
-            print(json.dumps(dict(zc=zc, bgn=bgn, batch=batch,
-                                  schedule=schedule, default_ms=_ms(run),
-                                  best=best, all=times)), flush=True)
+            plan = decode.plan_launch(bgn, zc, batch, schedule, layout, n_sm)
+            print(json.dumps(dict(
+                kernel=name, zc=zc, bgn=bgn, batch=batch, snr_db=snr,
+                schedule=schedule, plan=dict(cluster=plan.cluster,
+                                             group=plan.group,
+                                             threads=plan.threads,
+                                             warp=plan.warp,
+                                             lr_on_chip=plan.lr_on_chip),
+                plan_ms=device_ms(run, 3 if batch > 400 else 10), best=best,
+                all=times)), flush=True)
 
 
 if __name__ == "__main__":

@@ -262,6 +262,109 @@ def test_ldpc_packed_rejects_what_does_not_fit(cuda_device):
         ldpc_dec.ldpc_minsum_packed(llr, 80, 2, 2, group=3)
 
 
+# every lifting size the kernels' layouts treat differently: slices
+# narrower than a warp, one warp, padded last warps (144, 176, 208, 240),
+# clusters of several blocks (352, 384)
+LIFTINGS = [2, 12, 16, 32, 80, 112, 144, 176, 208, 240, 352, 384]
+ALL_VARIANTS = [("flooded", "exact")] + VARIANTS
+
+
+def _mixed_llrs(device, zc, bgn, batch, snr):
+    """Noisy codewords, the last two replaced by LLRs that never converge
+    (the final rule), one of them with zero LLRs (sign(0))."""
+    llr = _noisy_llrs(device, zc, bgn, batch, snr)
+    junk = 4.0 * np.random.default_rng(zc * bgn).standard_normal(
+        (2, llr.shape[1]), dtype=np.float32)
+    junk[1, ::7] = 0.0
+    llr[-2:] = torch.as_tensor(junk, device=device)
+    return llr
+
+
+@pytest.mark.parametrize("schedule,semantics", ALL_VARIANTS)
+@pytest.mark.parametrize("bgn", [1, 2])
+@pytest.mark.parametrize("zc", LIFTINGS)
+def test_ldpc_kernels_bit_exact_across_liftings(cuda_device, zc, bgn,
+                                                 schedule, semantics):
+    """Both kernels at their planned launch against the plain decoder,
+    bit for bit in bits, ok and iteration counts."""
+    llr = _mixed_llrs(cuda_device, zc, bgn, 6, 0.0)
+    ref = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 6, 0.8, 0.3, schedule,
+                                      semantics)
+    kerns = [ldpc_dec.ldpc_minsum]
+    if ldpc_dec.packed_group_limit(zc, bgn) >= 1:
+        kerns.append(ldpc_dec.ldpc_minsum_packed)
+    iters = []
+    for kern in kerns:
+        it = torch.zeros(6, dtype=torch.int32, device=cuda_device)
+        _assert_same_decode(kern(llr, zc, bgn, 6, 0.8, 0.3, it, schedule,
+                                 semantics), ref)
+        iters.append(it)
+    assert int(iters[0][-2:].min()) == 6
+    assert all(torch.equal(i, iters[0]) for i in iters)
+
+
+@pytest.mark.parametrize("zc,bgn", [(384, 1), (352, 2), (144, 1), (80, 2),
+                                    (32, 2), (12, 1)])
+def test_ldpc_kernels_with_forced_cluster_and_group(cuda_device, zc, bgn):
+    """Every cluster size the lifting allows, groups across their range
+    and LR in device memory, 7 codewords (a multiple of no group above 1):
+    the same bits; a cluster or group that does not fit raises."""
+    llr = _mixed_llrs(cuda_device, zc, bgn, 7, 0.0)
+    slices = ldpc_dec.cluster_slices(zc)
+    g_max = ldpc_dec.packed_group_limit(zc, bgn)
+    for schedule, semantics in ALL_VARIANTS:
+        ref = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 5, 0.8, 0.3,
+                                          schedule, semantics)
+        for k, zl in slices.items():
+            kw = dict(schedule=schedule, semantics=semantics, cluster=k)
+            if ldpc_dec.smem_bytes(bgn, zc, 1, zl) > 232448:
+                with pytest.raises(ValueError):
+                    ldpc_dec.ldpc_minsum(llr, zc, bgn, 5, 0.8, 0.3, **kw)
+                continue
+            _assert_same_decode(
+                ldpc_dec.ldpc_minsum(llr, zc, bgn, 5, 0.8, 0.3, **kw), ref)
+            for g in sorted({1, 2, 3, g_max} & set(range(1, g_max + 1))):
+                if ldpc_dec.smem_bytes(bgn, zc, g, zl) > 232448 or (
+                        schedule == "layered" and zc <= 32 and k > 1):
+                    continue
+                _assert_same_decode(ldpc_dec.ldpc_minsum_packed(
+                    llr, zc, bgn, 5, 0.8, 0.3, group=g, **kw), ref)
+        if g_max >= 1:
+            _assert_same_decode(ldpc_dec.ldpc_minsum_packed(
+                llr, zc, bgn, 5, 0.8, 0.3, schedule=schedule,
+                semantics=semantics, threads=64), ref)
+        # LR in device memory, LQ in one block
+        _assert_same_decode(ldpc_dec.ldpc_minsum(
+            llr, zc, bgn, 5, 0.8, 0.3, schedule=schedule,
+            semantics=semantics, lr_on_chip=False), ref)
+
+
+def test_ldpc_forced_launch_that_does_not_fit_raises(cuda_device):
+    llr = torch.zeros((2, 66 * 384), device=cuda_device)
+    for cluster in (1, 2, 4, 17):      # too large a slice, or no such K
+        with pytest.raises(ValueError):
+            ldpc_dec.ldpc_minsum(llr, 384, 1, 2, cluster=cluster)
+    llr = torch.zeros((2, 66 * 12), device=cuda_device)
+    with pytest.raises(ValueError):
+        ldpc_dec.ldpc_minsum_packed(llr, 12, 1, 2, group=13)
+    with pytest.raises(ValueError):
+        ldpc_dec.ldpc_minsum(llr, 12, 1, 2, threads=48)
+    # the C entry refuses what the planner would never ask for, and the
+    # wrapper's check raises: a slice that is no power of two
+    lib = kernels.library("ldpc_minsum")
+    tab = ldpc_dec._device_tables(1, 384, cuda_device)
+    out = torch.empty((2, 68 * 384), dtype=torch.int8, device=cuda_device)
+    ok = torch.empty(2, dtype=torch.bool, device=cuda_device)
+    llr = torch.zeros((2, 66 * 384), device=cuda_device)
+    rc = lib.ldpc_minsum(llr.data_ptr(), tab.data_ptr(), 2, 46, 68, 316, 32,
+                         384, 2, 1.0, 0.0, 0, 0, 4, 96, 1024, None,
+                         out.data_ptr(),
+                         ok.data_ptr(), None,
+                         torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError):
+        kernels.check("ldpc_minsum", rc)
+
+
 def test_bp_and_bit_flipping_on_card_match_cpu(cuda_device):
     llr = _noisy_llrs(cuda_device, 16, 2, 24, 3.0)
     got = ldpc_dec.ldpc_decode(llr, 16, 2, 8, "BP")
