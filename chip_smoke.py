@@ -64,7 +64,7 @@ from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (  # noqa: E402
-    call_ms, device_ms)
+    call_ms, device_ms, never_converging_llrs)
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,14 +203,6 @@ def _noisy_codewords(rng, zc, bgn, batch, snr_db):
     return (2 / s2) * (1 - 2 * dn + noise * np.sqrt(s2))
 
 
-def _garbage_llrs(rng, zc, bgn, batch):
-    """LLRs of the decoder bench (bench.py:bench_ldpc): nothing converges,
-    every codeword runs all its iterations and the final rule."""
-    ncols = 68 if bgn == 1 else 52
-    return torch.as_tensor(4.0 * rng.standard_normal(
-        (batch, (ncols - 2) * zc), dtype=np.float32), device=DEV)
-
-
 def _event_ms(fn):
     """fn() once, its result and its device time."""
     start = torch.cuda.Event(enable_timing=True)
@@ -284,8 +276,8 @@ def phase_ldpc(rng) -> dict:
     main = None
     # the plain decoder is timed on one call per case: let the first such
     # call in the process (kernel loading, allocator growth) go untimed
-    ldpc_dec._ldpc_decode_plain(_garbage_llrs(rng, 352, 2, 20), 352, 2, 2,
-                                0.8, 0.3)
+    ldpc_dec._ldpc_decode_plain(never_converging_llrs(rng, 352, 2, 20, DEV),
+                                352, 2, 2, 0.8, 0.3)
     # the sweep's code (BG2, Zc 352, 20 codewords) where most codewords
     # converge, a large batch, BG1 at the largest lifting, and a point
     # where none converges (all 16 iterations and the final rule)
@@ -322,7 +314,7 @@ def phase_ldpc_packed(rng) -> dict:
              (12, 1, 397, -0.5, "batch not a multiple of the group"),
              (12, 1, 400, None, "never converging")]
     for zc, bgn, batch, snr, label in cases:
-        llr = (_garbage_llrs(rng, zc, bgn, batch) if snr is None
+        llr = (never_converging_llrs(rng, zc, bgn, batch, DEV) if snr is None
                else _noisy_codewords(rng, zc, bgn, batch, snr))
         for schedule, semantics in VARIANTS:
             # the same input through the one-block-per-codeword kernel
@@ -378,7 +370,7 @@ def phase_ldpc_variants(rng) -> tuple[dict, dict]:
                    schedule, semantics, snr_db=-2.0)
     rows = {}
     zc, bgn = 384, 1
-    llr = _garbage_llrs(rng, zc, bgn, 2048)
+    llr = never_converging_llrs(rng, zc, bgn, 2048, DEV)
     for schedule, semantics in VARIANTS:
         n_iter = 32 if schedule == "flooded" else 16
         row, _ = _ldpc_case("ldpc_variants", ldpc_dec.ldpc_minsum, llr[:512],

@@ -379,8 +379,9 @@ def plan_launch(bgn: int, zc: int, batch: int, schedule: str = "flooded",
         flooded and 512 layered (the kernels' launch bounds); one warp per
         block's codeword group for the warp kernel (at most 256).
     group, cluster and threads override the defaults; lr_on_chip=False
-    forces LR into device memory (one block per cluster). ValueError
-    where they do not fit."""
+    forces LR into device memory (ldpc_minsum only, one block per
+    cluster). ValueError where they do not fit. A plan with forced values
+    goes to the wrappers' `plan` argument (checked_plan)."""
     rows, nrows, ncols = _graph(bgn, zc)
     packed = layout == "packed"
     slices = cluster_slices(zc)
@@ -411,7 +412,9 @@ def plan_launch(bgn: int, zc: int, batch: int, schedule: str = "flooded",
                           and n_clusters * min(fit, default=n_sm) > n_sm)
     max_threads = _MAX_THREADS["warp" if warp else schedule]
     if not lr_on_chip:
-        if (cluster not in (None, 1) or warp or smem_bytes(
+        if packed:
+            raise ValueError("ldpc_minsum_packed keeps LR in shared memory")
+        if (cluster not in (None, 1) or smem_bytes(
                 bgn, zc, group, zc, False) > _SMEM_OPTIN_BYTES):
             raise ValueError("LR in device memory takes one block per "
                              "cluster whose LQ fits in shared memory")
@@ -459,9 +462,24 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def checked_plan(plan: LaunchPlan | None, bgn: int, zc: int, batch: int,
+                 schedule: str, layout: str, n_sm: int) -> LaunchPlan:
+    """plan_launch's choice where plan is None; else plan itself, once
+    plan_launch, forced to its cluster, group, threads and LR placement,
+    gives it back for this decode (ValueError where it does not: a plan
+    made for another code, batch or schedule)."""
+    if plan is None:
+        return plan_launch(bgn, zc, batch, schedule, layout, n_sm)
+    if plan != plan_launch(bgn, zc, batch, schedule, layout, n_sm,
+                           plan.group, plan.cluster, plan.threads,
+                           plan.lr_on_chip):
+        raise ValueError(f"{plan} was not made for BG{bgn} / Zc {zc} / "
+                         f"B {batch}, {schedule}, layout {layout!r}")
+    return plan
+
+
 def _decode_on_card(name, llr_in, zc, bgn, n_iter, alpha, beta, iters_out,
-                    schedule, semantics, layout, group, cluster, threads,
-                    lr_on_chip):
+                    schedule, semantics, layout, plan):
     """Checks the inputs, plans and launches one of the two kernels ->
     (bits (B, K) int8, ok (B,) bool, full_bits (B, ncols*Zc) int8)."""
     if llr_in.device.type != "cuda":
@@ -482,8 +500,7 @@ def _decode_on_card(name, llr_in, zc, bgn, n_iter, alpha, beta, iters_out,
                                   or iters_out.device != dev):
         raise ValueError("iters_out must be a (B,) int32 tensor on the "
                          "input's device")
-    plan = plan_launch(bgn, zc, b, schedule, layout, _sm_count(dev), group,
-                       cluster, threads, lr_on_chip)
+    plan = checked_plan(plan, bgn, zc, b, schedule, layout, _sm_count(dev))
     llr_in = llr_in.contiguous()
     full = torch.empty((b, ncols * zc), dtype=torch.int8, device=dev)
     ok = torch.empty(b, dtype=torch.bool, device=dev)
@@ -514,8 +531,7 @@ def ldpc_minsum(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
                 alpha: float = 1.0, beta: float = 0.0,
                 iters_out: torch.Tensor | None = None,
                 schedule: str = "flooded", semantics: str = "exact",
-                cluster: int | None = None, threads: int | None = None,
-                lr_on_chip: bool | None = None):
+                plan: LaunchPlan | None = None):
     """Decode (B, N) punctured-codeword LLRs on the card with the
     hand-written kernel csrc/ldpc_minsum.cu, one codeword per cluster of
     blocks (plan_launch); replaces
@@ -523,13 +539,14 @@ def ldpc_minsum(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
     schedules, both check nodes). Returns (bits (B, K) int8, ok (B,) bool,
     full_bits (B, ncols*Zc) int8). iters_out, a (B,) int32 CUDA tensor,
     receives the number of updates each codeword ran (it stops once its
-    syndrome is zero). cluster, threads and lr_on_chip override the
-    planner's choice (ValueError where they do not fit; a launch the card
-    refuses raises RuntimeError). The launch is counted in
+    syndrome is zero). plan, a plan_launch result for this decode with
+    its cluster, threads or LR placement forced, replaces the planner's
+    choice (ValueError where it does not fit; a launch the card refuses
+    raises RuntimeError). The launch is counted in
     kernels.LAUNCHES["ldpc_minsum_<schedule>[_fast]"]."""
     out = _decode_on_card("ldpc_minsum", llr_in, zc, bgn, n_iter, alpha,
-                          beta, iters_out, schedule, semantics, "batch", None,
-                          cluster, threads, lr_on_chip)
+                          beta, iters_out, schedule, semantics, "batch",
+                          plan)
     kernels.LAUNCHES[f"ldpc_minsum_{schedule}"
                      + ("_fast" if semantics == "fast" else "")] += 1
     return out
@@ -546,18 +563,18 @@ def ldpc_minsum_packed(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
                        alpha: float = 1.0, beta: float = 0.0,
                        iters_out: torch.Tensor | None = None,
                        schedule: str = "flooded", semantics: str = "exact",
-                       group: int | None = None, threads: int | None = None,
-                       cluster: int | None = None):
+                       plan: LaunchPlan | None = None):
     """The small-lifting decoder csrc/ldpc_minsum_packed.cu; replaces
     python_5gtoolbox_tpu/ops/ldpc/pallas_decode.py:_make_kernel_packed.
     Same contract and same bits as ldpc_minsum. A cluster (one block by
     default) decodes `group` codewords whose LQ and LR all stay in shared
-    memory; plan_launch gives the defaults. group, threads and cluster
-    override them, for measurements. Raises ValueError where the state of
-    one codeword does not fit one block."""
+    memory; plan_launch gives the launch, and plan (a plan_launch result
+    for this decode, layout "packed", with its group, cluster or threads
+    forced) replaces it. Raises ValueError where the state of one codeword
+    does not fit one block."""
     out = _decode_on_card("ldpc_minsum_packed", llr_in, zc, bgn, n_iter,
                           alpha, beta, iters_out, schedule, semantics,
-                          "packed", group, cluster, threads, True)
+                          "packed", plan)
     kernels.LAUNCHES["ldpc_minsum_packed"] += 1
     return out
 

@@ -32,9 +32,11 @@ from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
 
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
 N_SLOTS = 20
-# __global__ function names of csrc/*.cu
-PORT_KERNELS = ("banded_fir_kernel", "ldpc_minsum_kernel",
-                "ldpc_minsum_packed_kernel", "fir_up2_fused_kernel",
+# __global__ function names of csrc/*.cu (the LDPC kernels, templates in
+# csrc/ldpc_common.cuh shared by ldpc_minsum and ldpc_minsum_packed, by
+# their demangled prefix)
+PORT_KERNELS = ("banded_fir_kernel", "ldpc::decode_kernel",
+                "ldpc::decode_warp_kernel", "fir_up2_fused_kernel",
                 "fir_up2_fused_symbols_kernel",
                 "duc_from_spec_kernel")
 

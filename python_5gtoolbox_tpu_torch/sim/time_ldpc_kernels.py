@@ -12,7 +12,8 @@ L=32 and layered L=16, ldpc_minsum), the decoder study (BG1 / Zc 12 / B
 400 at -0.5 dB, flooded and layered, ldpc_minsum_packed) and the
 small-allocation sweep (BG2 / Zc 80 / B 20 at -2 dB, flooded,
 ldpc_minsum_packed); all exact check node, alpha 0.8, beta 0.3, inputs
-from a fixed seed. Per shape one JSON line: device_ms (device time per
+from a fixed seed (noisy codewords from sim/ldpc_decoder.py:
+gen_ldpc_llr_batch, the decoder study's stimulus). Per shape one JSON line: device_ms (device time per
 decode with the launches back to back), call_ms (CUDA events around
 consecutive calls, host time included), a hash of the bits and ok flags
 (equal between trees that give the same bits) and, where the tree has a
@@ -84,29 +85,25 @@ def call_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _llrs(rng, zc, bgn, batch, snr_db, dev):
+def never_converging_llrs(rng, zc, bgn, batch, device):
+    """LLRs of the decoder bench (bench.py:bench_ldpc), 4 * N(0, 1): no
+    codeword converges, every one runs all its iterations and the final
+    rule."""
     ncols = 68 if bgn == 1 else 52
-    if snr_db is None:
-        return torch.as_tensor(4.0 * rng.standard_normal(
-            (batch, (ncols - 2) * zc), dtype=np.float32), device=dev)
-    from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode
-    k = (22 if bgn == 1 else 10) * zc
-    bits = torch.as_tensor(rng.integers(0, 2, (batch, k), dtype=np.int8),
-                           device=dev)
-    dn = ldpc_encode(bits, bgn).to(torch.float32)
-    s2 = 10 ** (-snr_db / 10)
-    noise = torch.as_tensor(rng.standard_normal(tuple(dn.shape),
-                                                dtype=np.float32), device=dev)
-    return (2 / s2) * (1 - 2 * dn + noise * np.sqrt(s2))
+    return torch.as_tensor(4.0 * rng.standard_normal(
+        (batch, (ncols - 2) * zc), dtype=np.float32), device=device)
 
 
 def main(label: str = "") -> None:
     from python_5gtoolbox_tpu_torch.ops.ldpc import decode
+    from python_5gtoolbox_tpu_torch.sim.ldpc_decoder import gen_ldpc_llr_batch
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
     plan = getattr(decode, "plan_launch", None)
     for name, zc, bgn, batch, snr, schedule, n_iter in SHAPES:
-        llr = _llrs(rng, zc, bgn, batch, snr, dev)
+        llr = (never_converging_llrs(rng, zc, bgn, batch, dev) if snr is None
+               else torch.as_tensor(gen_ldpc_llr_batch(
+                   rng, zc, bgn, snr, batch, device=dev)[1], device=dev))
         kern = getattr(decode, name)
 
         def run():

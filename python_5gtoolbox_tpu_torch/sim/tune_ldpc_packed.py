@@ -25,7 +25,8 @@ import torch
 
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode
 from python_5gtoolbox_tpu_torch.sim.ldpc_decoder import gen_ldpc_llr_batch
-from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import device_ms
+from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (
+    device_ms, never_converging_llrs)
 
 # (kernel, zc, bgn, batch, snr_db or None for never-converging LLRs, L)
 SHAPES = [("ldpc_minsum_packed", 12, 1, 400, -0.5, 16),
@@ -38,24 +39,25 @@ ALPHA, BETA = 0.8, 0.3
 THREADS = (128, 256, 512, 1024)
 
 
-def _launches(name, zc, bgn, schedule):
-    """Every (cluster, group, threads) the planner accepts for this shape,
-    groups 1, 2, 3, 4, 6, 8, 12 and the limit."""
-    layout = "packed" if name == "ldpc_minsum_packed" else "batch"
+def _plans(zc, bgn, batch, schedule, layout):
+    """label -> every launch plan the planner accepts for this decode:
+    each cluster size, groups 1, 2, 3, 4, 6, 8, 12 and the limit, each of
+    THREADS, and (layout "batch") LR in device memory (suffix "dev")."""
     g_max = decode.packed_group_limit(zc, bgn) if layout == "packed" else 1
-    out = []
-    for group in sorted({1, 2, 3, 4, 6, 8, 12, g_max}):
-        for cluster in decode.cluster_slices(zc):
-            for threads in THREADS:
-                if group > g_max:
-                    continue
-                try:
-                    decode.plan_launch(bgn, zc, 1, schedule, layout,
-                                       group=group, cluster=cluster,
-                                       threads=threads)
-                except ValueError:
-                    continue
-                out.append((cluster, group, threads))
+    forced = [dict(cluster=k, group=g, threads=t)
+              for g in sorted({1, 2, 3, 4, 6, 8, 12, g_max}) if g <= g_max
+              for k in decode.cluster_slices(zc) for t in THREADS]
+    if layout == "batch":
+        forced += [dict(cluster=1, threads=t, lr_on_chip=False)
+                   for t in THREADS]
+    out = {}
+    for kw in forced:
+        try:
+            p = decode.plan_launch(bgn, zc, batch, schedule, layout, **kw)
+        except ValueError:
+            continue
+        out[f"k{p.cluster}g{p.group}t{p.threads}"
+            + ("" if p.lr_on_chip else "dev")] = p
     return out
 
 
@@ -66,44 +68,26 @@ def main() -> None:
     print(torch.cuda.get_device_name(0), flush=True)
     for name, zc, bgn, batch, snr, n_iter in SHAPES:
         if snr is None:
-            ncols = 68 if bgn == 1 else 52
-            llr = torch.as_tensor(4.0 * rng.standard_normal(
-                (batch, (ncols - 2) * zc), dtype=np.float32), device=dev)
+            llr = never_converging_llrs(rng, zc, bgn, batch, dev)
         else:
             _, llr = gen_ldpc_llr_batch(rng, zc, bgn, snr, batch, device=dev)
             llr = torch.as_tensor(llr, device=dev)
         kern = getattr(decode, name)
         layout = "packed" if name == "ldpc_minsum_packed" else "batch"
         for schedule in ("flooded", "layered"):
-            def run(**kw):
+            def run(plan=None):
                 return kern(llr, zc, bgn, n_iter, ALPHA, BETA,
-                            schedule=schedule, **kw)
+                            schedule=schedule, plan=plan)
             ref = run()
             times = {}
-            for cluster, group, threads in _launches(name, zc, bgn,
-                                                     schedule):
-                kw = dict(cluster=cluster, threads=threads)
-                if layout == "packed":
-                    kw["group"] = group
-                out = run(**kw)
+            for label, forced in _plans(zc, bgn, batch, schedule,
+                                        layout).items():
+                out = run(forced)
                 if not (torch.equal(out[2], ref[2])
                         and torch.equal(out[1], ref[1])):
-                    raise AssertionError(f"{name} {kw}: other bits")
-                times[f"k{cluster}g{group}t{threads}"] = device_ms(
-                    lambda: run(**kw), 3 if batch > 400 else 10)
-            if layout == "batch":
-                # LQ in one block, LR in device memory
-                for threads in THREADS:
-                    kw = dict(cluster=1, threads=threads, lr_on_chip=False)
-                    try:
-                        decode.plan_launch(bgn, zc, 1, schedule, layout,
-                                           **kw)
-                    except ValueError:
-                        continue
-                    if not torch.equal(run(**kw)[2], ref[2]):
-                        raise AssertionError(f"{name} {kw}: other bits")
-                    times[f"k1g1t{threads}dev"] = device_ms(
-                        lambda: run(**kw), 3 if batch > 400 else 10)
+                    raise AssertionError(f"{name} {label}: other bits")
+                times[label] = device_ms(lambda: run(forced),
+                                         3 if batch > 400 else 10)
             best = sorted(times.items(), key=lambda kv: kv[1])[:6]
             plan = decode.plan_launch(bgn, zc, batch, schedule, layout, n_sm)
             print(json.dumps(dict(

@@ -240,8 +240,10 @@ def test_ldpc_packed_kernel_matches_plain(cuda_device, zc, bgn, batch, snr,
     ref = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 8, 0.8, 0.3, schedule,
                                       semantics)
     iters = torch.zeros(batch, dtype=torch.int32, device=cuda_device)
+    plan = (None if group is None else ldpc_dec.plan_launch(
+        bgn, zc, batch, schedule, "packed", group=group))
     got = ldpc_dec.ldpc_minsum_packed(llr, zc, bgn, 8, 0.8, 0.3, iters,
-                                      schedule, semantics, group=group)
+                                      schedule, semantics, plan)
     _assert_same_decode(got, ref)
     assert int(iters.min()) >= 0 and int(iters.max()) <= 8
     before = dict(kernels.LAUNCHES)
@@ -259,7 +261,8 @@ def test_ldpc_packed_rejects_what_does_not_fit(cuda_device):
         ldpc_dec.ldpc_decode(llr, 384, 1, 2, layout="packed")
     llr = torch.zeros((2, 50 * 80), device=cuda_device)
     with pytest.raises(ValueError):
-        ldpc_dec.ldpc_minsum_packed(llr, 80, 2, 2, group=3)
+        ldpc_dec.ldpc_minsum_packed(llr, 80, 2, 2, plan=ldpc_dec.plan_launch(
+            2, 80, 2, layout="packed", group=3))
 
 
 # every lifting size the kernels' layouts treat differently: slices
@@ -267,6 +270,16 @@ def test_ldpc_packed_rejects_what_does_not_fit(cuda_device):
 # clusters of several blocks (352, 384)
 LIFTINGS = [2, 12, 16, 32, 80, 112, 144, 176, 208, 240, 352, 384]
 ALL_VARIANTS = [("flooded", "exact")] + VARIANTS
+
+
+def _forced(kern, llr, zc, bgn, schedule, semantics, **force):
+    """kern on a launch forced through plan_launch (which raises
+    ValueError where it does not fit)."""
+    layout = "packed" if kern is ldpc_dec.ldpc_minsum_packed else "batch"
+    plan = ldpc_dec.plan_launch(bgn, zc, llr.shape[0], schedule, layout,
+                                **force)
+    return kern(llr, zc, bgn, 5, 0.8, 0.3, schedule=schedule,
+                semantics=semantics, plan=plan)
 
 
 def _mixed_llrs(device, zc, bgn, batch, snr):
@@ -315,40 +328,44 @@ def test_ldpc_kernels_with_forced_cluster_and_group(cuda_device, zc, bgn):
     for schedule, semantics in ALL_VARIANTS:
         ref = ldpc_dec._ldpc_decode_plain(llr, zc, bgn, 5, 0.8, 0.3,
                                           schedule, semantics)
+        var = (llr, zc, bgn, schedule, semantics)
         for k, zl in slices.items():
-            kw = dict(schedule=schedule, semantics=semantics, cluster=k)
             if ldpc_dec.smem_bytes(bgn, zc, 1, zl) > 232448:
                 with pytest.raises(ValueError):
-                    ldpc_dec.ldpc_minsum(llr, zc, bgn, 5, 0.8, 0.3, **kw)
+                    _forced(ldpc_dec.ldpc_minsum, *var, cluster=k)
                 continue
             _assert_same_decode(
-                ldpc_dec.ldpc_minsum(llr, zc, bgn, 5, 0.8, 0.3, **kw), ref)
+                _forced(ldpc_dec.ldpc_minsum, *var, cluster=k), ref)
             for g in sorted({1, 2, 3, g_max} & set(range(1, g_max + 1))):
                 if ldpc_dec.smem_bytes(bgn, zc, g, zl) > 232448 or (
                         schedule == "layered" and zc <= 32 and k > 1):
                     continue
-                _assert_same_decode(ldpc_dec.ldpc_minsum_packed(
-                    llr, zc, bgn, 5, 0.8, 0.3, group=g, **kw), ref)
+                _assert_same_decode(_forced(ldpc_dec.ldpc_minsum_packed,
+                                            *var, cluster=k, group=g), ref)
         if g_max >= 1:
-            _assert_same_decode(ldpc_dec.ldpc_minsum_packed(
-                llr, zc, bgn, 5, 0.8, 0.3, schedule=schedule,
-                semantics=semantics, threads=64), ref)
+            _assert_same_decode(
+                _forced(ldpc_dec.ldpc_minsum_packed, *var, threads=64), ref)
         # LR in device memory, LQ in one block
-        _assert_same_decode(ldpc_dec.ldpc_minsum(
-            llr, zc, bgn, 5, 0.8, 0.3, schedule=schedule,
-            semantics=semantics, lr_on_chip=False), ref)
+        _assert_same_decode(
+            _forced(ldpc_dec.ldpc_minsum, *var, lr_on_chip=False), ref)
 
 
 def test_ldpc_forced_launch_that_does_not_fit_raises(cuda_device):
     llr = torch.zeros((2, 66 * 384), device=cuda_device)
     for cluster in (1, 2, 4, 17):      # too large a slice, or no such K
         with pytest.raises(ValueError):
-            ldpc_dec.ldpc_minsum(llr, 384, 1, 2, cluster=cluster)
+            _forced(ldpc_dec.ldpc_minsum, llr, 384, 1, "flooded", "exact",
+                    cluster=cluster)
+    big = ldpc_dec.plan_launch(1, 384, 2)
     llr = torch.zeros((2, 66 * 12), device=cuda_device)
     with pytest.raises(ValueError):
-        ldpc_dec.ldpc_minsum_packed(llr, 12, 1, 2, group=13)
+        _forced(ldpc_dec.ldpc_minsum_packed, llr, 12, 1, "flooded", "exact",
+                group=13)
     with pytest.raises(ValueError):
-        ldpc_dec.ldpc_minsum(llr, 12, 1, 2, threads=48)
+        _forced(ldpc_dec.ldpc_minsum, llr, 12, 1, "flooded", "exact",
+                threads=48)
+    with pytest.raises(ValueError):     # a plan made for another code
+        ldpc_dec.ldpc_minsum(llr, 12, 1, 2, plan=big)
     # the C entry refuses what the planner would never ask for, and the
     # wrapper's check raises: a slice that is no power of two
     lib = kernels.library("ldpc_minsum")

@@ -229,7 +229,8 @@ def test_plan_shapes_of_the_main_paths():
     dict(cluster=2), dict(cluster=5), dict(cluster=17), dict(threads=48),
     dict(threads=2048), dict(group=2), dict(layout="packed", group=13),
     dict(layout="packed", schedule="layered", cluster=2),
-    dict(cluster=3, lr_on_chip=False)],
+    dict(cluster=3, lr_on_chip=False),
+    dict(layout="packed", lr_on_chip=False)],
     ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
 def test_plan_rejects_what_does_not_fit(kw):
     kw = dict(kw)
@@ -241,8 +242,48 @@ def test_plan_rejects_what_does_not_fit(kw):
 
 
 @pytest.mark.parametrize("name,kw", [
-    ("ldpc_minsum", dict(cluster=3)), ("ldpc_minsum", dict(threads=256)),
+    ("ldpc_minsum", dict(cluster=2)), ("ldpc_minsum", dict(threads=256)),
     ("ldpc_minsum_packed", dict(group=2, cluster=1))])
 def test_wrappers_raise_on_cpu_tensors(name, kw):
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        getattr(dec, name)(torch.zeros((2, 50 * 16)), 16, 2, 4, **kw)
+    layout = "packed" if name == "ldpc_minsum_packed" else "batch"
+    plan = dec.plan_launch(2, 16, 2, "flooded", layout, N_SM, **kw)
+    for p in (None, plan):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            getattr(dec, name)(torch.zeros((2, 50 * 16)), 16, 2, 4, plan=p)
+
+
+@pytest.mark.parametrize("layout,kw", [
+    ("batch", dict(cluster=6)), ("batch", dict(cluster=1, lr_on_chip=False)),
+    ("batch", dict(threads=256)), ("packed", dict(group=2)),
+    ("packed", dict(cluster=5))])
+def test_checked_plan_takes_a_forced_plan_for_its_own_decode(layout, kw):
+    """A plan forced through plan_launch goes through unchanged; handed
+    to a decode of another code, batch or schedule, for which plan_launch
+    would not give it, it raises."""
+    zc = 352 if layout == "batch" else 80
+    plan = dec.plan_launch(2, zc, 20, "flooded", layout, N_SM, **kw)
+    assert dec.checked_plan(plan, 2, zc, 20, "flooded", layout, N_SM) is plan
+    assert dec.checked_plan(None, 2, zc, 20, "flooded", layout, N_SM) == \
+        dec.plan_launch(2, zc, 20, "flooded", layout, N_SM)
+    for args in [(2, zc, 21, "flooded", layout),
+                 (2, zc, 20, "layered", layout),
+                 (2, 80 if layout == "batch" else 96, 20, "flooded", layout),
+                 (1, zc, 20, "flooded", layout)]:
+        with pytest.raises(ValueError):
+            dec.checked_plan(plan, *args, N_SM)
+
+
+def test_profile_sweep_names_every_kernel():
+    """profile_sweep picks the port's kernels from the profiler's rows by
+    their __global__ names: every kernel in csrc/ has its entry, and every
+    entry names a kernel."""
+    import pathlib
+    import re
+    from python_5gtoolbox_tpu_torch.sim import profile_sweep
+    csrc = pathlib.Path(dec.__file__).parents[2] / "csrc"
+    names = set()
+    for src in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            src.read_text()))
+    assert {k.split("::")[-1] for k in profile_sweep.PORT_KERNELS} == names
