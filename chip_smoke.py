@@ -22,11 +22,15 @@ then drives the port's paths through its entry points:
     (bench.py:bench_ldpc: BG1, Zc 384, never-converging LLRs, flooded
     L=32 / layered L=16 / layered L=16 fast) through ldpc_decode.
 
-The LDPC kernels' times are device times of back-to-back decodes
+Every kernel's time is the device time of back-to-back calls
 (sim/time_ldpc_kernels.py:device_ms; a spin kernel holds the stream while
-the host enqueues them), each beside the time of consecutive calls with
-the host's share (call_ms) and the launch plan (cluster, group, threads,
-barriers per iteration) of ops/ldpc/decode.py:plan_launch.
+the host enqueues them), beside the time of consecutive calls with the
+host's share (call_ms) and the launch plan: cluster, group, threads and
+barriers per iteration for the LDPC kernels (ops/ldpc/decode.py:
+plan_launch), taps per branch, delay, tiles per block and staging path
+for banded_fir (ops/filters.py:fir_plan), cluster size and IDFTs per
+symbol for duc_from_spec (ops/filters.py:duc_plan). The FIR's library
+call (cuDNN) is timed as device time too.
 
 The launch counters are zeroed just before each path and read just
 after. Each phase prints JSON lines; the last two lines are the kernel
@@ -131,14 +135,25 @@ def _library_fir(planes, taps, mode):
         x, k, stride=2, padding=(n - 1) - 2 * ((n + 1) // 4))
 
 
+def _fir_plan_row(plan) -> dict:
+    return dict(kp=plan.kp, d=plan.d, tiles_per_block=plan.tiles_per_block,
+                stages=plan.stages, blocks=plan.blocks, vec=plan.vec,
+                smem_bytes=plan.smem_bytes)
+
+
 def phase_fir(rng) -> dict:
-    """banded_fir against banded_fir_plain in all three modes."""
+    """banded_fir against banded_fir_plain in all three modes; kernel and
+    library call timed as device time of back-to-back calls (device_ms),
+    the kernel also as consecutive calls with the host's share
+    (call_ms)."""
     worst, main = 0.0, None
     all_modes = ("same", "up2", "down2")
     hb = filters.halfband_coeff()
     # the FIR at the carrier rate, then the halfband stages of the 245.76
     # Msps sweep (BW 20, 20 slots, 2 TX / 4 RX antennas): DUC 2x -> 4x -> 8x
-    # after the fused kernel, DDC 8x -> 4x -> 2x -> 1x before the FIR
+    # after the fused kernel, DDC 8x -> 4x -> 2x -> 1x before the FIR; last
+    # a ragged row length on a base 4 bytes past a 16-byte boundary (the
+    # kernel's 4-byte staging path)
     cases = [((4, 307200), filters.fir_coeff(30, 20), "TX FIR, BW 20",
               all_modes),
              ((8, 307200), filters.fir_coeff(30, 20), "RX FIR, BW 20",
@@ -149,11 +164,18 @@ def phase_fir(rng) -> dict:
              ((4, 1228800), hb, "DUC halfband 4x -> 8x", ("up2",)),
              ((8, 2457600), hb, "DDC halfband 8x -> 4x", ("down2",)),
              ((8, 1228800), hb, "DDC halfband 4x -> 2x", ("down2",)),
-             ((8, 614400), hb, "DDC halfband 2x -> 1x", ("down2",))]
+             ((8, 614400), hb, "DDC halfband 2x -> 1x", ("down2",)),
+             ((3, 307201), filters.fir_coeff(30, 20),
+              "ragged, unaligned base", all_modes)]
     for shape, taps, label, modes in cases:
-        x = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
-                            device=DEV)
+        p, t = shape
+        flat = torch.as_tensor(rng.standard_normal(p * t + 1,
+                                                   dtype=np.float32),
+                               device=DEV)
+        x = (flat[1:] if label.startswith("ragged") else flat[:-1]).view(p, t)
         for mode in modes:
+            plan = filters.fir_plan(len(taps), mode, t, p,
+                                    x.data_ptr() % 16 == 0)
             got = filters.banded_fir(x, taps, mode)
             ref = filters.banded_fir_plain(x, taps, mode)
             torch.cuda.synchronize()
@@ -165,7 +187,10 @@ def phase_fir(rng) -> dict:
                 raise AssertionError(f"banded_fir {mode} {label}: max abs "
                                      f"error {err} >= {FIR_TOL}")
             worst = max(worst, err)
-            k_ms = call_ms(lambda: filters.banded_fir(x, taps, mode), 20)
+
+            def run():
+                return filters.banded_fir(x, taps, mode)
+            k_ms, c_ms = device_ms(run, 20), call_ms(run, 20)
             p_ms = call_ms(lambda: filters.banded_fir_plain(x, taps, mode),
                            10)
             lib = _library_fir(x, taps, mode)
@@ -176,15 +201,16 @@ def phase_fir(rng) -> dict:
                     or lib_out.shape[1] < got.shape[1] - 1:
                 raise AssertionError(f"library FIR {mode} {label}: not the "
                                      f"same function ({lib_err})")
-            l_ms = call_ms(lib, 20)
-            n, (p, t), t_out = len(taps), shape, got.shape[1]
+            l_ms = device_ms(lib, 20)
+            n, t_out = len(taps), got.shape[1]
             b_ms, b_by = bound_ms(4 * (p * t + p * t_out + n),
                                   2 * n * p * t_out * (0.5 if mode == "up2"
                                                        else 1.0))
             row = dict(label=label, mode=mode, shape=list(shape), taps=n,
-                       max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
-                       library_ms=l_ms, library_max_abs_err=lib_err,
-                       bound_ms=b_ms, bound_by=b_by)
+                       max_abs_err=err, kernel_ms=k_ms, call_ms=c_ms,
+                       plain_ms=p_ms, library_ms=l_ms,
+                       library_max_abs_err=lib_err, bound_ms=b_ms,
+                       bound_by=b_by, plan=_fir_plan_row(plan))
             emit("banded_fir", **row)
             if label.startswith("RX") and mode == "same":
                 main = row
@@ -461,14 +487,17 @@ def _case_symbols(rng, scs, bw, nant, n_slots):
             dict(shape=list(symp.shape), taps=len(fir)))
 
 
-def _case_spec(fd, scs, bw, fc=int(3500e6)):
+def _case_spec(fd, scs, bw, fc=int(3500e6), cluster=None):
     nant, n_slots = fd.shape[0], fd.shape[1]
     fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
     spec = ofdm.tx_spec_planes(fd, scs, bw, fc)
     nfft = spec.shape[-1]
     cps, pc = ofdm._cp_table(scs, nfft), ofdm._phase_comp(scs, nfft, fc)
+    plan = filters.duc_plan(nant, n_slots, nfft, len(fir), len(hb), cps,
+                            cluster)
     # the wrapper below duc_from_spec_planes: both planes in one tensor
-    kern = functools.partial(filters._duc_from_spec, spec, cps, fir, hb, pc)
+    kern = functools.partial(filters._duc_from_spec, spec, cps, fir, hb, pc,
+                             plan=None if cluster is None else plan)
 
     def plain():
         return torch.cat(filters.duc_from_spec_planes_plain(spec, cps, fir,
@@ -481,21 +510,29 @@ def _case_spec(fd, scs, bw, fc=int(3500e6)):
         + nant * n_slots * 14 * 5.0 * nfft * np.log2(nfft) + 8.0 * nant * t
     n_bytes = 4 * (spec.numel() + 2 * p * t + len(fir) + len(hb) + 14 + 28
                    + nfft)
-    return ("duc_from_spec", f"scs {scs}, BW {bw}, {n_slots} slots", kern,
-            plain, n_bytes, n_ops,
-            dict(shape=list(spec.shape), taps=len(fir)))
+    label = f"scs {scs}, BW {bw}, {n_slots} slots" + (
+        "" if cluster is None else f", cluster {cluster} forced")
+    return ("duc_from_spec", label, kern, plain, n_bytes, n_ops,
+            dict(shape=list(spec.shape), taps=len(fir),
+                 plan=dict(cluster=plan.cluster, blocks=plan.blocks,
+                           symbols=plan.symbols,
+                           idfts_per_symbol=plan.idfts_per_symbol,
+                           smem_bytes=plan.smem_bytes)))
 
 
 def _run_case(case, reps_kernel=20, reps_plain=5) -> dict:
-    """Kernel against plain on the card, then both timed."""
+    """Kernel against plain on the card, then both timed: the kernel as
+    device time of back-to-back calls (device_ms) and as consecutive calls
+    with the host's share (call_ms)."""
     name, label, kern, plain, n_bytes, n_ops, extra = case
     err = _check(name, label, kern(), plain())
-    k_ms = call_ms(kern, reps_kernel)
+    k_ms, c_ms = device_ms(kern, reps_kernel), call_ms(kern, reps_kernel)
     p_ms = call_ms(plain, reps_plain)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     # no single PyTorch call computes FIR + mask + halfband (+ CP, + IDFT)
-    row = dict(label=label, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by, **extra)
+    row = dict(label=label, max_abs_err=err, kernel_ms=k_ms, call_ms=c_ms,
+               plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               **extra)
     emit(name, **row)
     return row
 
@@ -515,6 +552,10 @@ def phase_duc_kernels(rng) -> dict:
         _case_spec(_random_grid(rng, 30, 40, 2, 8), 30, 40),
         _case_spec(_random_grid(rng, 30, 100, 2, 8), 30, 100),
         _case_spec(_random_grid(rng, 30, 100, 2, 1), 30, 100),
+        # 42 symbols: the grid padded to whole clusters, at the default
+        # size and at the largest (non-portable) one
+        _case_spec(_random_grid(rng, 30, 20, 2, 3), 30, 20),
+        _case_spec(_random_grid(rng, 30, 20, 2, 3), 30, 20, cluster=16),
     ]
     main, worst = {}, {}
     for case in cases:
@@ -578,6 +619,9 @@ def phase_duc(main: dict) -> int:
          max_abs_err_vs_plain=err, launches=launches)
     row = _run_case(_case_spec(fd, cfg["scs"], cfg["bw"],
                                cfg["carrier_freq_hz"]))
+    if not row["plan"]["idfts_per_symbol"] <= 1.25:
+        raise AssertionError(f"duc_from_spec plan at the bench width: "
+                             f"{row['plan']}")
     row["max_abs_err"] = max(row["max_abs_err"],
                              main["duc_from_spec"]["max_abs_err"])
     main["duc_from_spec"] = row

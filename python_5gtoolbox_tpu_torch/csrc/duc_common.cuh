@@ -124,12 +124,106 @@ __device__ inline void fma16(float acc[4], const float4& t, const float4& lo,
   acc[3] = fmaf(t.w, hi.x, acc[3]);
 }
 
-// One tile of the fused pair: writes zp[u] for u in [z0, z0 + nz), z0
-// and nz even, 2 <= nz <= gm.nz_tile. sx (16-byte aligned) holds the
-// timeline from x_lo = z0/2 - gm.hl on, n1p + round_up4(ny) finite floats
-// with ny = nz/2 + gm.off; sy holds kTileY floats. (nz_tile is a multiple
-// of 8, so tiles nz_tile apart within one window keep the alignment.) All
-// threads of the block call it; it ends with a barrier.
+// One tile of the fused pair on NP planes: writes zp[p zp_plane + u] for
+// u in [z0, z0 + nz), z0 and nz even, 2 <= nz <= gm.nz_tile. Plane p's
+// window sx + p sx_plane (16-byte aligned) holds the timeline from x_lo =
+// z0/2 - gm.hl on, n1p + round_up4(ny) finite floats with ny = nz/2 +
+// gm.off; sy holds NP kTileY floats. (nz_tile is a multiple of 8, so
+// tiles nz_tile apart within one window keep the alignment.) All threads
+// of the block call it; it ends with a barrier.
+template <int NP>
+__device__ inline void fir_up2_tiles(const Geometry& gm,
+                                     const float* __restrict__ sx,
+                                     int sx_plane, float* __restrict__ sy,
+                                     const float* __restrict__ sh,
+                                     const float* __restrict__ sge,
+                                     const float* __restrict__ sgo,
+                                     int t_orig, int z0, int nz,
+                                     float* __restrict__ zp,
+                                     size_t zp_plane) {
+  const int nv = nz / 2;
+  const int ny4 = round_up4(nv + gm.off);
+  const int y_lo = z0 / 2 - gm.y_back;
+  const int i0 = kPer * threadIdx.x;
+  // y[y_lo + i] = sum_j h[j] sx[n1p + i - j]
+  if (i0 < ny4) {
+    const float4* sh4 = reinterpret_cast<const float4*>(sh);
+    const int a = (gm.n1p + i0) / 4;
+    float acc[NP][4] = {};
+    if (NP == 1) {
+      const float4* sx4 = reinterpret_cast<const float4*>(sx);
+      float4 hi = sx4[a];
+      for (int q = 0; q < gm.n1p / 4; ++q) {
+        const float4 lo = sx4[a - q - 1];
+        fma16(acc[0], sh4[q], lo, hi);
+        hi = lo;
+      }
+    } else {
+      // the planes share each float4 of taps (the one-plane loop above
+      // measured faster alone)
+      float4 hi[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        hi[p] = reinterpret_cast<const float4*>(sx + p * sx_plane)[a];
+      for (int q = 0; q < gm.n1p / 4; ++q) {
+        const float4 taps = sh4[q];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const float4 lo =
+              reinterpret_cast<const float4*>(sx + p * sx_plane)[a - q - 1];
+          fma16(acc[p], taps, lo, hi[p]);
+          hi[p] = lo;
+        }
+      }
+    }
+    const int t = y_lo + i0;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float4 y;
+      y.x = (t >= 0 && t < t_orig) ? acc[p][0] : 0.f;
+      y.y = (t + 1 >= 0 && t + 1 < t_orig) ? acc[p][1] : 0.f;
+      y.z = (t + 2 >= 0 && t + 2 < t_orig) ? acc[p][2] : 0.f;
+      y.w = (t + 3 >= 0 && t + 3 < t_orig) ? acc[p][3] : 0.f;
+      reinterpret_cast<float4*>(sy + p * kTileY)[i0 / 4] = y;
+    }
+  }
+  __syncthreads();
+  // z[z0 + 2 (i + c) + e] = sum_k G_e[k] sy[i + c + off - k]
+  if (i0 < nv) {
+    const float4* sge4 = reinterpret_cast<const float4*>(sge);
+    const float4* sgo4 = reinterpret_cast<const float4*>(sgo);
+    const int a = (i0 + gm.off) / 4;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float4* sy4 = reinterpret_cast<const float4*>(sy + p * kTileY);
+      float ev[4] = {0.f, 0.f, 0.f, 0.f}, od[4] = {0.f, 0.f, 0.f, 0.f};
+      float4 hi = sy4[a];
+      for (int q = 0; q < gm.kp / 4; ++q) {
+        const float4 lo = sy4[a - q - 1];
+        fma16(ev, sge4[q], lo, hi);
+        fma16(od, sgo4[q], lo, hi);
+        hi = lo;
+      }
+      float* out = zp + p * zp_plane + z0 + 2 * i0;
+      if (i0 + 3 < nv && (reinterpret_cast<size_t>(out) & 15) == 0) {
+        reinterpret_cast<float4*>(out)[0] = make_float4(ev[0], od[0], ev[1],
+                                                        od[1]);
+        reinterpret_cast<float4*>(out)[1] = make_float4(ev[2], od[2], ev[3],
+                                                        od[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (i0 + c < nv) {
+            out[2 * c] = ev[c];
+            out[2 * c + 1] = od[c];
+          }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// fir_up2_tiles on one plane.
 __device__ inline void fir_up2_tile(const Geometry& gm,
                                     const float* __restrict__ sx,
                                     float* __restrict__ sy,
@@ -138,61 +232,7 @@ __device__ inline void fir_up2_tile(const Geometry& gm,
                                     const float* __restrict__ sgo,
                                     int t_orig, int z0, int nz,
                                     float* __restrict__ zp) {
-  const int nv = nz / 2;
-  const int ny4 = round_up4(nv + gm.off);
-  const int y_lo = z0 / 2 - gm.y_back;
-  const int i0 = kPer * threadIdx.x;
-  // y[y_lo + i] = sum_j h[j] sx[n1p + i - j]
-  if (i0 < ny4) {
-    const float4* sx4 = reinterpret_cast<const float4*>(sx);
-    const float4* sh4 = reinterpret_cast<const float4*>(sh);
-    const int a = (gm.n1p + i0) / 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    float4 hi = sx4[a];
-    for (int q = 0; q < gm.n1p / 4; ++q) {
-      const float4 lo = sx4[a - q - 1];
-      fma16(acc, sh4[q], lo, hi);
-      hi = lo;
-    }
-    const int t = y_lo + i0;
-    float4 y;
-    y.x = (t >= 0 && t < t_orig) ? acc[0] : 0.f;
-    y.y = (t + 1 >= 0 && t + 1 < t_orig) ? acc[1] : 0.f;
-    y.z = (t + 2 >= 0 && t + 2 < t_orig) ? acc[2] : 0.f;
-    y.w = (t + 3 >= 0 && t + 3 < t_orig) ? acc[3] : 0.f;
-    reinterpret_cast<float4*>(sy)[i0 / 4] = y;
-  }
-  __syncthreads();
-  // z[z0 + 2 (i + c) + e] = sum_k G_e[k] sy[i + c + off - k]
-  if (i0 < nv) {
-    const float4* sy4 = reinterpret_cast<const float4*>(sy);
-    const float4* sge4 = reinterpret_cast<const float4*>(sge);
-    const float4* sgo4 = reinterpret_cast<const float4*>(sgo);
-    const int a = (i0 + gm.off) / 4;
-    float ev[4] = {0.f, 0.f, 0.f, 0.f}, od[4] = {0.f, 0.f, 0.f, 0.f};
-    float4 hi = sy4[a];
-    for (int q = 0; q < gm.kp / 4; ++q) {
-      const float4 lo = sy4[a - q - 1];
-      fma16(ev, sge4[q], lo, hi);
-      fma16(od, sgo4[q], lo, hi);
-      hi = lo;
-    }
-    float* out = zp + z0 + 2 * i0;
-    if (i0 + 3 < nv && (reinterpret_cast<size_t>(out) & 15) == 0) {
-      reinterpret_cast<float4*>(out)[0] = make_float4(ev[0], od[0], ev[1],
-                                                      od[1]);
-      reinterpret_cast<float4*>(out)[1] = make_float4(ev[2], od[2], ev[3],
-                                                      od[3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (i0 + c < nv) {
-          out[2 * c] = ev[c];
-          out[2 * c + 1] = od[c];
-        }
-    }
-  }
-  __syncthreads();
+  fir_up2_tiles<1>(gm, sx, 0, sy, sh, sge, sgo, t_orig, z0, nz, zp, 0);
 }
 
 // Symbol boundaries of one slot's CP timeline in shared memory:

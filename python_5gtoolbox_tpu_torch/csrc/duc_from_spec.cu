@@ -8,39 +8,50 @@
 // the slot timeline assembled in VMEM with 128-lane copy plans, halos
 // recomputed from the neighbour slots' symbols 13 and 0 through clamped
 // index maps and zeroed again at the waveform's ends. None of that
-// machinery is carried over. Here one block serves one (symbol, slot,
-// antenna):
+// machinery is carried over. Here one block serves one symbol of one
+// antenna (block g = 14 slot + symbol), and the blocks of K consecutive
+// symbols form a thread-block cluster (K from the host plan,
+// python_5gtoolbox_tpu_torch/ops/filters.py:duc_plan; clusters may cross
+// slot boundaries; the grid is padded to whole clusters with blocks that
+// take part in the cluster barriers and emit nothing):
 //
 //   1. a Stockham autosort IDFT in shared memory (radix 4, one radix-2
 //      pass first when log2 nfft is odd; FP32, twiddles from a table
-//      computed in float64) of the previous and of the next symbol of the
-//      waveform, of which only the filters' halos are kept (zeros before
-//      the first slot and after the last: no clamped neighbour), then of
-//      the block's own symbol. The passes go to and fro between two
-//      buffers in natural order, so no pass and no load is bit-reversed
-//      and every read is conflict-free; the second buffer lies in the
-//      middle of the timeline window, which is written only afterwards;
-//   2. per output sample the (-1)^t sign of the centre ifftshift, the
-//      1/sqrt(nfft) scale (amplitude ifft * sqrt(nfft)) and the symbol's
-//      phase compensation, while the CP timeline window
-//      [halo | CP | data | halo] is written to shared memory; the CP of a
-//      symbol is the tail of its own compensated IDFT output;
-//   3. duc::fir_up2_tile over the window, real plane then imaginary.
-//
-// A block per symbol computes three IDFTs for one symbol of output, where
-// a block per slot would compute 16 for 14. The IDFT is about 4 % of the
-// stage's operations, so this buys 14 times as many blocks (1792 for 64
-// slots x 2 antennas on 132 SMs) and a window that fits in shared memory
-// (72 KB at nfft 4096 with 287 taps) for about 10 % more arithmetic.
+//      computed in float64) of the block's own symbol. The passes go to
+//      and fro between two buffers in natural order, so no pass and no
+//      load is bit-reversed and every read is conflict-free;
+//   2. per sample the (-1)^t sign of the centre ifftshift, the
+//      1/sqrt(nfft) scale and the symbol's phase compensation, while its
+//      CP timeline (the CP is the tail of its own output) is written into
+//      the middle of the block's window [halo | CP | data | halo];
+//   3. after a cluster barrier, the halos: the last hl samples of symbol
+//      g - 1 and the first hr of g + 1 are read from the neighbouring
+//      blocks' windows through distributed shared memory. Only the
+//      cluster's first block computes symbol g - 1's IDFT itself, and its
+//      last block symbol g + 1's, before their own (the second IDFT buffer
+//      is the window's middle, which is published only afterwards). The
+//      waveform's two ends stay zero. K = 8: 10 IDFTs per 8 symbols where
+//      a block per symbol computing both neighbours needs 24;
+//   4. duc::fir_up2_tiles over the window in equal tiles (multiples of 8
+//      outputs), both planes per pass. The cluster barriers are split: a
+//      block arrives once its timeline is published and runs the tiles
+//      that read no halo sample before it waits (at nfft 4096 the middle
+//      three of five are filtered while the edge blocks compute their
+//      second IDFT); it arrives again once its halo copies are done, runs
+//      the other tiles, and waits only before it exits.
 //
 // Bound on the H100: per 1x complex sample 2 x (n1 + n2) FMAs against
 // about 7.5 bytes in and 16 bytes out: operation-bound against the 67
-// TFLOP/s FP32 peak.
+// TFLOP/s FP32 peak. The IDFT is about 4 % of the operations at nfft 4096
+// with 287 + 55 taps.
+#include <cooperative_groups.h>
+
 #include "duc_common.cuh"
 
 namespace {
 
 using namespace duc;
+namespace cg = cooperative_groups;
 
 // One radix-2 Stockham pass of length n at stride 1 (the first pass):
 // natural order in x, natural order in y. tw: cos then sin of
@@ -160,7 +171,27 @@ __device__ inline void emit_symbol(const float* __restrict__ fre,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Whether the tile of outputs [u0, u0 + nz) of a symbol of len timeline
+// samples reads its window's halos: fir_up2_tiles reads the window from
+// u0 / 2 on, n1p + round_up4(nz / 2 + off) floats; the symbol's own
+// samples are [hl, hl + len).
+__device__ inline bool reads_halo(const Geometry& gm, int len, int u0,
+                                  int nz) {
+  return u0 / 2 < gm.hl ||
+         u0 / 2 + gm.n1p + round_up4(nz / 2 + gm.off) > gm.hl + len;
+}
+
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 5 blocks per SM at most 51 registers a thread: at nfft 1024 (18 KB of
+// shared memory) the 245.76 Msps sweep's 560 blocks then fit one wave
+__global__ void __launch_bounds__(kThreads, 5)
 duc_from_spec_kernel(const float* __restrict__ spec,
                      const int* __restrict__ cps,
                      const float* __restrict__ pc,
@@ -170,11 +201,18 @@ duc_from_spec_kernel(const float* __restrict__ spec,
                      int logn, int n1, int n2, int win) {
   extern __shared__ __align__(16) float smem[];
   __shared__ SlotLayout lay;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int n_sym = 14 * n_slots;
+  const int sym = blockIdx.x, a = blockIdx.y;
+  // a padding block only takes part in the cluster barriers
+  const bool real = sym < n_sym;
   const Geometry gm = geometry(n1, n2);
   float* sh = smem;
   float* sge = sh + gm.n1p;
   float* sgo = sge + gm.kp;
-  float* sxr = sgo + gm.kp;
+  float* sxr = sgo + gm.kp;     // window, real plane; imaginary at + win
   float* sxi = sxr + win;
   float* ar = sxi + win;        // IDFT buffer A, later the FIR intermediate
   float* ai = ar + nfft;
@@ -182,70 +220,106 @@ duc_from_spec_kernel(const float* __restrict__ spec,
   const int hl = gm.hl, hr = gm.hr;
   float* br = sxr + hl;         // IDFT buffer B: the window's middle
   float* bi = sxi + hl;
-  const int m = blockIdx.x, s = blockIdx.y, a = blockIdx.z;
-  load_slot_layout(&lay, cps, nfft);
-  load_taps(gm, h, n1, g, sh, sge, sgo);
-  const int slot_samples = lay.start[14];
-  const int t = n_slots * slot_samples;
-  const int cp = lay.cp[m];
-  const int len = cp + nfft;
-  const int sym_start = s * slot_samples + lay.start[m];
-  const float* twc = tw;
-  const float* tws = tw + nfft / 2;
-  const float scale = rsqrtf(static_cast<float>(nfft));
-  const size_t plane = static_cast<size_t>(n_slots) * 14 * nfft;
-  const float* sre = spec + static_cast<size_t>(a) * plane;
-  const float* sim = spec + static_cast<size_t>(nant + a) * plane;
-  const bool even = (idft_passes(logn) & 1) == 0;
-  // where an IDFT loaded into A ends
-  const float* ra = even ? ar : br;
-  const float* ia = even ? ai : bi;
+  const int m = sym % 14, s = sym / 14;
+  int len = 0, sym_start = 0, t = 0;
+  if (real) {
+    load_slot_layout(&lay, cps, nfft);
+    load_taps(gm, h, n1, g, sh, sge, sgo);
+    t = n_slots * lay.start[14];
+    len = lay.cp[m] + nfft;
+    sym_start = s * lay.start[14] + lay.start[m];
+    const float* twc = tw;
+    const float* tws = tw + nfft / 2;
+    const float scale = rsqrtf(static_cast<float>(nfft));
+    const size_t plane = static_cast<size_t>(n_slots) * 14 * nfft;
+    const float* sre = spec + static_cast<size_t>(a) * plane;
+    const float* sim = spec + static_cast<size_t>(nant + a) * plane;
+    const bool even = (idft_passes(logn) & 1) == 0;
+    // where an IDFT loaded into A ends
+    const float* ra = even ? ar : br;
+    const float* ia = even ? ai : bi;
 
-  // left halo: the last hl samples of the previous symbol of the waveform
-  if (m == 0 && s == 0) {
-    for (int k = threadIdx.x; k < hl; k += kThreads) sxr[k] = sxi[k] = 0.f;
-  } else {
-    const int mp = m == 0 ? 13 : m - 1, sp = m == 0 ? s - 1 : s;
-    const size_t off = (static_cast<size_t>(sp) * 14 + mp) * nfft;
-    idft_symbol(sre + off, sim + off, ar, ai, br, bi, twc, tws, nfft, logn);
-    emit_symbol(ra, ia, nfft, lay.cp[mp], scale, pc[2 * mp], pc[2 * mp + 1],
-                lay.cp[mp] + nfft - hl, hl, sxr, sxi);
-  }
-
-  // right halo: the first hr samples of the next symbol of the waveform
-  if (m == 13 && s == n_slots - 1) {
-    for (int k = threadIdx.x; k < hr; k += kThreads)
-      sxr[hl + len + k] = sxi[hl + len + k] = 0.f;
-  } else {
-    const int mn = m == 13 ? 0 : m + 1, sn = m == 13 ? s + 1 : s;
-    const size_t off = (static_cast<size_t>(sn) * 14 + mn) * nfft;
-    idft_symbol(sre + off, sim + off, ar, ai, br, bi, twc, tws, nfft, logn);
-    emit_symbol(ra, ia, nfft, lay.cp[mn], scale, pc[2 * mn], pc[2 * mn + 1],
-                0, hr, sxr + hl + len, sxi + hl + len);
-  }
-
-  // own symbol, loaded so that it ends in A: the window's middle, which
-  // holds B, is written from it
-  {
-    const size_t off = (static_cast<size_t>(s) * 14 + m) * nfft;
+    // the cluster's first block: the last hl samples of symbol sym - 1
+    if (rank == 0 && sym > 0) {
+      const int mp = (sym - 1) % 14;
+      const size_t off = static_cast<size_t>(sym - 1) * nfft;
+      idft_symbol(sre + off, sim + off, ar, ai, br, bi, twc, tws, nfft, logn);
+      emit_symbol(ra, ia, nfft, lay.cp[mp], scale, pc[2 * mp],
+                  pc[2 * mp + 1], lay.cp[mp] + nfft - hl, hl, sxr, sxi);
+    }
+    // its last block: the first hr samples of symbol sym + 1
+    if (rank == csize - 1 && sym + 1 < n_sym) {
+      const int mn = (sym + 1) % 14;
+      const size_t off = static_cast<size_t>(sym + 1) * nfft;
+      idft_symbol(sre + off, sim + off, ar, ai, br, bi, twc, tws, nfft, logn);
+      emit_symbol(ra, ia, nfft, lay.cp[mn], scale, pc[2 * mn],
+                  pc[2 * mn + 1], 0, hr, sxr + hl + len, sxi + hl + len);
+    }
+    // own symbol, loaded so that it ends in A: the window's middle, which
+    // holds B, is written from it
+    const size_t off = static_cast<size_t>(sym) * nfft;
     if (even)
       idft_symbol(sre + off, sim + off, ar, ai, br, bi, twc, tws, nfft, logn);
     else
       idft_symbol(sre + off, sim + off, br, bi, ar, ai, twc, tws, nfft, logn);
-    emit_symbol(ar, ai, nfft, cp, scale, pc[2 * m], pc[2 * m + 1], 0, len,
-                sxr + hl, sxi + hl);
+    emit_symbol(ar, ai, nfft, lay.cp[m], scale, pc[2 * m], pc[2 * m + 1], 0,
+                len, br, bi);
   }
-  __syncthreads();
-
+  // Equal tiles of at most nz_tile outputs, multiples of 8 but the last.
+  // The tiles that read no halo sample run while the neighbours publish;
+  // the others once the halos are in.
+  const int n_out = 2 * len;
+  const int n_tiles = max(1, (n_out + gm.nz_tile - 1) / gm.nz_tile);
+  const int tile = ((n_out + n_tiles - 1) / n_tiles + 7) & ~7;
   float* zre = z + static_cast<size_t>(a) * 2 * t;
-  float* zim = z + static_cast<size_t>(nant + a) * 2 * t;
-  for (int u0 = 0; u0 < 2 * len; u0 += gm.nz_tile) {
-    const int nz = min(gm.nz_tile, 2 * len - u0);
-    fir_up2_tile(gm, sxr + u0 / 2, sy, sh, sge, sgo, t, 2 * sym_start + u0,
-                 nz, zre);
-    fir_up2_tile(gm, sxi + u0 / 2, sy, sh, sge, sgo, t, 2 * sym_start + u0,
-                 nz, zim);
+  const size_t zplane = static_cast<size_t>(nant) * 2 * t;
+  cluster_arrive();
+  if (real) {
+    __syncthreads();
+    for (int u0 = 0; u0 < n_out; u0 += tile)
+      if (!reads_halo(gm, len, u0, min(tile, n_out - u0)))
+        fir_up2_tiles<2>(gm, sxr + u0 / 2, win, sy, sh, sge, sgo, t,
+                         2 * sym_start + u0, min(tile, n_out - u0), zre,
+                         zplane);
   }
+  // every block of the cluster has published its timeline
+  cluster_wait();
+  if (real) {
+    if (sym == 0) {
+      for (int k = threadIdx.x; k < hl; k += kThreads) sxr[k] = sxi[k] = 0.f;
+    } else if (rank > 0) {
+      // the neighbour's timeline ends at its window index hl + len_prev
+      const float* rr = cluster.map_shared_rank(sxr, rank - 1);
+      const int from = lay.cp[(sym - 1) % 14] + nfft;
+      for (int k = threadIdx.x; k < hl; k += kThreads) {
+        sxr[k] = rr[from + k];
+        sxi[k] = rr[win + from + k];
+      }
+    }
+    float* right_r = sxr + hl + len;
+    float* right_i = sxi + hl + len;
+    if (sym == n_sym - 1) {
+      for (int k = threadIdx.x; k < hr; k += kThreads)
+        right_r[k] = right_i[k] = 0.f;
+    } else if (rank < csize - 1) {
+      const float* rr = cluster.map_shared_rank(sxr, rank + 1);
+      for (int k = threadIdx.x; k < hr; k += kThreads) {
+        right_r[k] = rr[hl + k];
+        right_i[k] = rr[win + hl + k];
+      }
+    }
+  }
+  // done reading the neighbours; they may exit once all have arrived
+  cluster_arrive();
+  if (real) {
+    __syncthreads();
+    for (int u0 = 0; u0 < n_out; u0 += tile)
+      if (reads_halo(gm, len, u0, min(tile, n_out - u0)))
+        fir_up2_tiles<2>(gm, sxr + u0 / 2, win, sy, sh, sge, sgo, t,
+                         2 * sym_start + u0, min(tile, n_out - u0), zre,
+                         zplane);
+  }
+  cluster_wait();
 }
 
 }  // namespace
@@ -256,18 +330,23 @@ duc_from_spec_kernel(const float* __restrict__ spec,
 // lengths, pc (14, 2) float32 phase compensation (re, im) per symbol, tw
 // (2, nfft / 2) float32 cos and sin of 2 pi q / nfft, h (n1) FIR taps,
 // g (n2) halfband taps already scaled by sqrt(2), all on the device.
-// cp_min / cp_max: the smallest and largest CP. Returns the CUDA error of
-// the launch (0 on success). Launches on `stream`, does not synchronise.
+// cp_min / cp_max: the smallest and largest CP; cluster: blocks (symbols)
+// per thread-block cluster, 1..16 (duc_plan). Returns the CUDA error of
+// the launch (0 on success; cudaErrorInvalidConfiguration where the card
+// cannot place such a cluster). Launches on `stream`, does not
+// synchronise.
 extern "C" int duc_from_spec(const float* spec, const int* cps,
                              const float* pc, const float* tw, const float* h,
                              const float* g, float* z, int nant, int n_slots,
                              int nfft, int slot_samples, int cp_min,
-                             int cp_max, int n1, int n2, void* stream) {
+                             int cp_max, int n1, int n2, int cluster,
+                             void* stream) {
   if (nant <= 0 || n_slots <= 0) return 0;
   int logn = 0;
   while ((1 << logn) < nfft) ++logn;
-  if (nant > 65535 || n_slots > 65535 || n1 <= 0 || n2 < 3 || nfft < 4 ||
-      (1 << logn) != nfft || cp_min < 0 || cp_max < cp_min ||
+  if (nant > 65535 || n_slots > 65535 * 8 || n1 <= 0 || n2 < 3 ||
+      nfft < 4 || (1 << logn) != nfft || cp_min < 0 || cp_max < cp_min ||
+      cluster < 1 || cluster > 16 ||
       2LL * n_slots * slot_samples > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const duc::Geometry gm = duc::geometry(n1, n2);
@@ -275,17 +354,47 @@ extern "C" int duc_from_spec(const float* spec, const int* cps,
   if (gm.nz_tile < 8 || gm.hl > cp_min + nfft || gm.hr > cp_min + nfft)
     return static_cast<int>(cudaErrorInvalidValue);
   const int win = duc::round_up4(gm.hl + cp_max + nfft + gm.hr);
-  const int scratch = 2 * nfft > duc::kTileY ? 2 * nfft : duc::kTileY;
+  // the IDFT's buffer A, later the two planes' FIR intermediate
+  const int scratch = 2 * nfft > 2 * duc::kTileY ? 2 * nfft
+                                                  : 2 * duc::kTileY;
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(gm.n1p) + 2 * gm.kp + 2 * win + scratch);
-  if (smem > 226 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      duc_from_spec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(14, n_slots, nant);
-  duc_from_spec_kernel<<<grid, duc::kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      spec, cps, pc, tw, h, g, z, nant, n_slots, nfft, logn, n1, n2, win);
+  if (smem + sizeof(duc::SlotLayout) > static_cast<size_t>(limit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(duc_from_spec_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        duc_from_spec_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_sym = 14 * n_slots;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_sym + cluster - 1) / cluster * cluster, nant, 1);
+  cfg.blockDim = dim3(duc::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster the card cannot place is an error, not a slower launch
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, duc_from_spec_kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaLaunchKernelEx(&cfg, duc_from_spec_kernel, spec, cps, pc, tw, h,
+                           g, z, nant, n_slots, nfft, logn, n1, n2, win);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

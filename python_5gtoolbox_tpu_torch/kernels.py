@@ -30,6 +30,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" / "kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # source stem -> extra nvcc flags
 _SOURCES = {
+    # banded_fir takes the register-blocked loop from csrc/duc_common.cuh
     "banded_fir": [],
     # the LDPC decoders are bit-exact with the JAX reference: no FMA
     # contraction; both share csrc/ldpc_common.cuh
@@ -42,7 +43,7 @@ _SOURCES = {
 }
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "banded_fir": ("banded_fir", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "banded_fir": ("banded_fir", [_P] * 3 + [_I] * 10 + [_P]),
     "ldpc_minsum": ("ldpc_minsum",
                     [_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P] * 5),
     "ldpc_minsum_packed": ("ldpc_minsum_packed",
@@ -51,7 +52,7 @@ _SIGNATURES = {
     "fir_up2_fused": ("fir_up2_fused", [_P] * 4 + [_I] * 4 + [_P]),
     "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
                               [_P] * 5 + [_I] * 6 + [_P]),
-    "duc_from_spec": ("duc_from_spec", [_P] * 7 + [_I] * 8 + [_P]),
+    "duc_from_spec": ("duc_from_spec", [_P] * 7 + [_I] * 9 + [_P]),
 }
 
 LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0,

@@ -27,6 +27,7 @@ conv1d / torch.fft) on a CPU tensor.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -110,14 +111,164 @@ def _device_taps(taps_key: bytes, scale: float, device: torch.device):
     return torch.as_tensor(taps.astype(np.float32), device=device)
 
 
+# Launch geometry of csrc/banded_fir.cu (kept equal to its constants)
+FIR_THREADS = 256
+FIR_TILE = FIR_THREADS * 4 * 2     # branch positions per tile: 2 groups of
+                                   # 4 consecutive outputs per thread
+FIR_RING_TILES_PER_SM = 16         # above this many tiles per SM, blocks of
+                                   # 2 tiles with a 2-window ring
+FIR_MAX_TILES_PER_BLOCK = 8
+FIR_MAX_STAGES = 2
+H100_SMS = 132
+
+
+def _round_up4(a: int) -> int:
+    return -(-a // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FirPlan:
+    """How csrc/banded_fir.cu runs one stage (fir_plan).
+
+    A stage is written as one or two branches over a sample array w,
+    each a 'same'-style sum over its own taps at a common delay d:
+
+      same : y[v]        = sum_k H[k]  x[v + d - k]
+      up2  : y[2v + e]   = sum_k H_e[k] x[v + d - k]         (e = 0, 1)
+      down2: y[v]        = sum_k H_0[k] x_p0[v + d - k]
+                          + sum_k H_1[k] x_p1[v + d - k],   x_p[m] = x[2m + p]
+
+    with branch taps H_e[shift_e + k] = h[j0_e + step k] (k < kn_e; zeros
+    elsewhere, kp per branch) and d a multiple of 4, so that a thread's
+    four consecutive positions read aligned float4 groups. A tile covers
+    `tile` positions v of one plane; its window holds w[v_lo + d - kp ..
+    v_lo + tile + d) (down2: both phases, staged as the interleaved input
+    x[2 (v_lo + d - kp) ..]). vec: the window is staged in 16-byte copies
+    (rows of a multiple of 4 samples on a 16-byte aligned base), else
+    sample by sample.
+    """
+    mode: str
+    n: int
+    t_in: int
+    t_out: int
+    planes: int
+    kp: int
+    d: int
+    j0: tuple
+    step: int
+    kn: tuple
+    shift: tuple
+    phase: tuple            # down2: the input phase each branch reads
+    scale: float
+    positions: int          # branch positions per plane (v < positions)
+    tiles: int              # tiles per plane
+    tiles_per_block: int
+    blocks: int
+    stages: int             # window buffers in a block's ring
+    vec: bool
+    threads: int = FIR_THREADS
+    tile: int = FIR_TILE
+
+    @property
+    def branches(self) -> int:
+        return len(self.kn)
+
+    @property
+    def window(self) -> int:
+        """Input samples staged per tile."""
+        return (2 if self.mode == "down2" else 1) * (self.tile + self.kp)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Taps, the ring of windows, and for down2 the two phases."""
+        floats = self.branches * self.kp + self.stages * self.window
+        if self.mode == "down2":
+            floats += 2 * (self.tile + self.kp)
+        return 4 * floats
+
+    def tile_window(self, k: int) -> tuple[int, int, int]:
+        """(plane, first position, first input sample) of tile k of the
+        flattened (plane, tile) order; the window holds self.window
+        samples from the last on (zeros outside [0, t_in))."""
+        plane, v_lo = divmod(k, self.tiles)
+        v_lo *= self.tile
+        lo = v_lo + self.d - self.kp
+        return plane, v_lo, (2 * lo if self.mode == "down2" else lo)
+
+    def pack(self, taps: np.ndarray) -> np.ndarray:
+        """(branches, kp) float32 branch taps, scaled, zero-padded."""
+        h = np.asarray(taps, np.float64) * self.scale
+        out = np.zeros((self.branches, self.kp), np.float64)
+        for e in range(self.branches):
+            out[e, self.shift[e]:self.shift[e] + self.kn[e]] = \
+                h[self.j0[e]::self.step][:self.kn[e]]
+        return out.astype(np.float32)
+
+
+def fir_plan(n: int, mode: str, t_in: int, planes: int, aligned: bool = True,
+             n_sm: int = H100_SMS, tiles_per_block: int | None = None,
+             stages: int | None = None) -> FirPlan:
+    """The launch of csrc/banded_fir.cu for one stage of n taps over
+    (planes, t_in) samples. aligned: the input's base address is a
+    multiple of 16 bytes (the wrapper checks its tensor's).
+
+    A block takes one tile into one window buffer, or, where the stage has
+    more than FIR_RING_TILES_PER_SM tiles per SM, two tiles through a ring
+    of two (the second window arrives while the first is computed): the
+    fastest pair at every main-path shape but two, within 5 % there
+    (sim/time_filter_kernels.py --tune, PERF.md section 6).
+    tiles_per_block, stages: forced values (the tuner's); ValueError
+    outside 1..FIR_MAX_TILES_PER_BLOCK and 1..FIR_MAX_STAGES."""
+    b, t_out, scale = _stage(n, mode, t_in)
+    if mode == "same":
+        j0, step, kn, dd, phase = (0,), 1, (n,), (b,), ()
+    elif mode == "up2":
+        j0 = tuple((e + b) % 2 for e in range(2))
+        step = 2
+        kn = tuple((n - j + 1) // 2 for j in j0)
+        dd = tuple((e + b - j) // 2 for e, j in zip(range(2), j0))
+        phase = ()
+    else:
+        j0, step = (0, 1), 2
+        kn = tuple((n - p + 1) // 2 for p in j0)
+        dd = tuple((b - p) // 2 for p in j0)
+        phase = tuple((b - p) % 2 for p in j0)
+    d = _round_up4(max(max(dd), 0))
+    shift = tuple(d - x for x in dd)
+    kp = _round_up4(max(k + s for k, s in zip(kn, shift)))
+    positions = t_out if mode == "down2" else t_in
+    tiles = -(-positions // FIR_TILE)
+    total = planes * tiles
+    ring = total > FIR_RING_TILES_PER_SM * n_sm
+    tpb = (2 if ring else 1) if tiles_per_block is None else tiles_per_block
+    stages = (2 if ring else 1) if stages is None else stages
+    if not (1 <= tpb <= FIR_MAX_TILES_PER_BLOCK
+            and 1 <= stages <= FIR_MAX_STAGES):
+        raise ValueError(f"banded_fir: {tpb} tiles per block or {stages} "
+                         f"stages out of range")
+    return FirPlan(mode=mode, n=n, t_in=t_in, t_out=t_out, planes=planes,
+                   kp=kp, d=d, j0=j0, step=step, kn=kn, shift=shift,
+                   phase=phase, scale=scale, positions=positions,
+                   tiles=tiles, tiles_per_block=tpb,
+                   blocks=-(-total // tpb) if total else 0, stages=stages,
+                   vec=bool(aligned and t_in % 4 == 0))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_branch_taps(taps_key: bytes, plan: FirPlan,
+                        device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(plan.pack(np.frombuffer(taps_key, np.float64)),
+                           device=device)
+
+
 def banded_fir(planes: torch.Tensor, taps: np.ndarray,
                mode: str) -> torch.Tensor:
     """One FIR stage on real planes: (P, T) float32 -> (P, T_out).
 
     Replaces python_5gtoolbox_tpu/ops/pallas_filters.py:_conv_kernel
     (reached through banded_conv). CUDA tensors go through the
-    hand-written kernel csrc/banded_fir.cu; CPU tensors through
-    banded_fir_plain.
+    hand-written kernel csrc/banded_fir.cu, launched as fir_plan says;
+    CPU tensors through banded_fir_plain.
     """
     if planes.device.type == "cpu":
         return banded_fir_plain(planes, taps, mode)
@@ -127,15 +278,30 @@ def banded_fir(planes: torch.Tensor, taps: np.ndarray,
             or not planes.is_contiguous():
         raise ValueError("banded_fir: planes must be a contiguous 2-D "
                          "float32 tensor")
-    n = len(taps)
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     p, t = planes.shape
-    b, t_out, scale = _stage(n, mode, t)
-    h = _device_taps(_taps_key(taps), scale, planes.device)
-    y = torch.empty((p, t_out), dtype=torch.float32, device=planes.device)
+    return _banded_fir_launch(planes, taps, fir_plan(
+        len(taps), mode, t, p, planes.data_ptr() % 16 == 0))
+
+
+def _banded_fir_launch(planes: torch.Tensor, taps: np.ndarray,
+                       plan: FirPlan) -> torch.Tensor:
+    """banded_fir's launch as plan says (a plan made for these planes,
+    taps and alignment: the C entry refuses 16-byte staging otherwise)."""
+    p, t = planes.shape
+    if (plan.n, plan.planes, plan.t_in) != (len(taps), p, t):
+        raise ValueError("banded_fir: the plan was made for other shapes")
+    y = torch.empty((p, plan.t_out), dtype=torch.float32,
+                    device=planes.device)
+    if y.numel() == 0:
+        return y
+    h = _device_branch_taps(_taps_key(taps), plan, planes.device)
     fn = kernels.library("banded_fir").banded_fir
-    rc = fn(planes.data_ptr(), h.data_ptr(), y.data_ptr(), p, t, t_out, n,
-            _MODES[mode], b, torch.cuda.current_stream(planes.device)
-            .cuda_stream)
+    rc = fn(planes.data_ptr(), h.data_ptr(), y.data_ptr(), p, t, plan.t_out,
+            _MODES[plan.mode], plan.kp, plan.d,
+            plan.phase[0] if plan.phase else 0, plan.tiles_per_block,
+            plan.stages, int(plan.vec), _stream(planes))
     kernels.check("banded_fir", rc)
     kernels.LAUNCHES["banded_fir"] += 1
     return y
@@ -182,11 +348,17 @@ def _oversample(scs: int, bw: int, rate_hz: float) -> int:
 
 def rx_channel_filter(rx: torch.Tensor, scs: int, bw: int,
                       in_rate_hz: float) -> torch.Tensor:
-    """DDC: halfband /2 stages then FIR at carrier rate (rx_lowphy:100-164)."""
-    y = rx
+    """DDC: halfband /2 stages then FIR at carrier rate (rx_lowphy:100-164).
+    The stages run on real planes: complex in, complex out, nothing
+    converted in between."""
+    lead, t = rx.shape[:-1], rx.shape[-1]
+    xc = rx.to(torch.complex64).reshape(-1, t)
+    y = torch.cat([xc.real, xc.imag]).contiguous()
     for _ in range(int(np.log2(_oversample(scs, bw, in_rate_hz)))):
-        y = hb_downsample2(y)
-    return fir_same(y, fir_coeff(scs, bw))
+        y = banded_conv_planes(y, halfband_coeff(), "down2")
+    y = banded_conv_planes(y, fir_coeff(scs, bw), "same")
+    m = xc.shape[0]
+    return torch.complex(y[:m], y[m:]).reshape(lead + (y.shape[-1],))
 
 
 def banded_conv_planes(planes: torch.Tensor, taps: np.ndarray,
@@ -353,11 +525,157 @@ def _twiddles(nfft: int) -> bytes:
     return np.concatenate([np.cos(q), np.sin(q)]).astype(np.float32).tobytes()
 
 
+# csrc/duc_common.cuh: threads per block and FIR outputs held per tile
+DUC_THREADS = 256
+DUC_TILE_Y = DUC_THREADS * 4
+DUC_MAX_CLUSTER = 16              # with non-portable cluster sizes allowed
+DUC_CLUSTER = 8                   # the largest portable cluster
+SMEM_PER_BLOCK = 232448           # H100: shared memory a block can opt in to
+
+
+@dataclasses.dataclass(frozen=True)
+class DucGeometry:
+    """duc::geometry of one (FIR, halfband) pair (csrc/duc_common.cuh)."""
+    n1p: int
+    kp: int
+    off: int
+    y_back: int
+    x_back: int
+    nz_tile: int
+    hl: int           # timeline samples a symbol's window holds before it
+    hr: int           # ... and after it
+
+
+def duc_geometry(n1: int, n2: int) -> DucGeometry:
+    b1, b2 = n1 - 1 - n1 // 2, n2 // 2 - 1
+    j0 = [(e + b2) & 1 for e in range(2)]
+    dd = [(e + b2 - j0[e]) // 2 for e in range(2)]
+    kn = [(n2 - j0[e] + 1) // 2 for e in range(2)]
+    d = max(dd)
+    kp = _round_up4(max(kn[e] + d - dd[e] for e in range(2)))
+    n1p = _round_up4(n1)
+    y_back, x_back = kp - d, n1p - b1
+    return DucGeometry(n1p=n1p, kp=kp, off=kp, y_back=y_back, x_back=x_back,
+                       nz_tile=2 * ((DUC_TILE_Y - kp) & ~3),
+                       hl=y_back + x_back, hr=b1 + d + 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class DucPlan:
+    """How csrc/duc_from_spec.cu runs (duc_plan).
+
+    Block g of antenna a serves symbol g of the waveform (g = 14 slot +
+    symbol; blocks >= symbols pad the grid to whole clusters and emit
+    nothing). The blocks form clusters of `cluster` consecutive symbols.
+    Each block computes its own symbol's IDFT and publishes its CP
+    timeline in the middle of its window; it takes its left halo (the
+    last hl samples of symbol g - 1) and its right halo (the first hr of
+    g + 1) from its neighbours' shared memory. A cluster's first block
+    computes symbol g - 1's IDFT itself, its last block symbol g + 1's,
+    and the waveform's two ends stay zero. The tiles that read no halo
+    (reads_halo) run before the exchange.
+    """
+    nant: int
+    n_slots: int
+    nfft: int
+    n1: int
+    n2: int
+    cps: tuple
+    cluster: int
+    geometry: DucGeometry
+    win: int                # floats of each plane's window
+    smem_bytes: int
+
+    @property
+    def symbols(self) -> int:
+        return 14 * self.n_slots
+
+    @property
+    def blocks(self) -> int:
+        """Blocks per antenna: symbols padded to whole clusters."""
+        return -(-self.symbols // self.cluster) * self.cluster
+
+    def computes_outer(self, g: int) -> tuple[bool, bool]:
+        """Whether block g computes its left / right neighbour's IDFT."""
+        rank, n = g % self.cluster, self.symbols
+        return (g < n and rank == 0 and g > 0,
+                g + 1 < n and rank == self.cluster - 1)
+
+    @property
+    def idfts(self) -> int:
+        """IDFTs per antenna, outer neighbours included."""
+        return self.symbols + sum(sum(self.computes_outer(g))
+                                  for g in range(self.blocks))
+
+    @property
+    def idfts_per_symbol(self) -> float:
+        return self.idfts / self.symbols
+
+    def tiles(self, g: int) -> list[tuple[int, int]]:
+        """(first output, outputs) of each tile of symbol g's 2 (cp +
+        nfft) outputs: equal tiles, multiples of 8 but the last."""
+        n_out = 2 * (self.cps[g % 14] + self.nfft)
+        n_tiles = -(-n_out // self.geometry.nz_tile)
+        tile = (-(-n_out // n_tiles) + 7) // 8 * 8
+        return [(u, min(tile, n_out - u)) for u in range(0, n_out, tile)]
+
+    def reads_halo(self, g: int, u0: int, nz: int) -> bool:
+        """Whether the tile runs after the halo exchange: its window
+        stretch [u0/2, u0/2 + n1p + round_up4(nz/2 + off)) reaches a halo
+        (the symbol's own samples are [hl, hl + cp + nfft))."""
+        gm, length = self.geometry, self.cps[g % 14] + self.nfft
+        return (u0 // 2 < gm.hl or u0 // 2 + gm.n1p
+                + _round_up4(nz // 2 + gm.off) > gm.hl + length)
+
+
+def duc_plan(nant: int, n_slots: int, nfft: int, n1: int, n2: int, cps,
+             cluster: int | None = None) -> DucPlan:
+    """The launch of csrc/duc_from_spec.cu; raises (ValueError) where the
+    shapes or a forced cluster size do not fit."""
+    cps = tuple(int(c) for c in cps)
+    k = DUC_CLUSTER if cluster is None else int(cluster)
+    if not 1 <= k <= DUC_MAX_CLUSTER:
+        raise ValueError(f"duc_from_spec: cluster {k} outside "
+                         f"1..{DUC_MAX_CLUSTER}")
+    if nant < 1 or n_slots < 1 or nfft < 4 or nfft & (nfft - 1) \
+            or len(cps) != 14 or min(cps) < 0 or max(cps) > nfft:
+        raise ValueError("duc_from_spec: needs nfft a power of two and 14 "
+                         "CP lengths within [0, nfft]")
+    gm = duc_geometry(n1, n2)
+    if gm.nz_tile < 8 or max(gm.hl, gm.hr) > min(cps) + nfft:
+        raise ValueError(f"duc_from_spec: {n1} + {n2} taps reach past the "
+                         f"neighbouring symbols")
+    win = _round_up4(gm.hl + max(cps) + nfft + gm.hr)
+    # taps, two window planes, the IDFT's second buffer (later the two
+    # planes' FIR intermediate)
+    smem = 4 * (gm.n1p + 2 * gm.kp + 2 * win + 2 * max(nfft, DUC_TILE_Y))
+    if smem + 128 > SMEM_PER_BLOCK:         # + the static slot layout
+        raise ValueError(f"duc_from_spec: {smem} bytes of shared memory per "
+                         f"block do not fit")
+    return DucPlan(nant=nant, n_slots=n_slots, nfft=nfft, n1=n1, n2=n2,
+                   cps=cps, cluster=k, geometry=gm, win=win, smem_bytes=smem)
+
+
+def checked_duc_plan(plan: DucPlan | None, nant: int, n_slots: int,
+                     nfft: int, n1: int, n2: int, cps) -> DucPlan:
+    """duc_plan's choice where plan is None; else plan itself, once
+    duc_plan, forced to its cluster size, gives it back for these shapes
+    (ValueError where it does not)."""
+    if plan is None:
+        return duc_plan(nant, n_slots, nfft, n1, n2, cps)
+    if plan != duc_plan(nant, n_slots, nfft, n1, n2, cps, plan.cluster):
+        raise ValueError(f"duc_from_spec: the plan was made for other "
+                         f"shapes ({plan.nant} antennas, {plan.n_slots} "
+                         f"slots, nfft {plan.nfft}, {plan.n1} + {plan.n2} "
+                         f"taps)")
+    return plan
+
+
 def _duc_from_spec(spec_planes: torch.Tensor, cps, fir_taps: np.ndarray,
-                   hb_taps: np.ndarray, phase_comp: np.ndarray
-                   ) -> torch.Tensor:
+                   hb_taps: np.ndarray, phase_comp: np.ndarray,
+                   plan: DucPlan | None = None) -> torch.Tensor:
     """duc_from_spec_planes with both output planes in one (2*ant, T2)
-    tensor (real planes first)."""
+    tensor (real planes first). plan: a forced duc_plan (checked)."""
     cps = tuple(int(c) for c in cps)
     if spec_planes.device.type == "cpu":
         return torch.cat(duc_from_spec_planes_plain(
@@ -369,6 +687,8 @@ def _duc_from_spec(spec_planes: torch.Tensor, cps, fir_taps: np.ndarray,
         raise ValueError("duc_from_spec_planes: needs (2*ant, S, 14, nfft) "
                          "planes with nfft a power of two, 14 CP lengths "
                          "within [0, nfft] and 14 phase factors")
+    plan = checked_duc_plan(plan, p2 // 2, s, nfft, len(fir_taps),
+                            len(hb_taps), cps)
     slot_samples = sum(cps) + 14 * nfft
     dev = spec_planes.device
     h, g = _fused_taps(fir_taps, hb_taps, dev)
@@ -381,7 +701,7 @@ def _duc_from_spec(spec_planes: torch.Tensor, cps, fir_taps: np.ndarray,
             _device_floats(pc.tobytes(), dev).data_ptr(),
             _device_floats(_twiddles(nfft), dev).data_ptr(), h.data_ptr(),
             g.data_ptr(), z.data_ptr(), p2 // 2, s, nfft, slot_samples,
-            min(cps), max(cps), len(fir_taps), len(hb_taps),
+            min(cps), max(cps), len(fir_taps), len(hb_taps), plan.cluster,
             _stream(spec_planes))
     kernels.check("duc_from_spec", rc)
     kernels.LAUNCHES["duc_from_spec"] += 1

@@ -56,6 +56,39 @@ def _max_err(got, ref):
     return (got - ref).abs().max().item()
 
 
+FIR_TAP_COUNTS = sorted(set(filters._FIR_NUMTAPS.values()) | {55})
+
+
+def _fir_taps(n):
+    if n == 55:
+        return filters.halfband_coeff()
+    scs, bw = next(k for k, v in filters._FIR_NUMTAPS.items() if v == n)
+    return filters.fir_coeff(scs, bw)
+
+
+@pytest.mark.parametrize("mode", ["same", "up2", "down2"])
+@pytest.mark.parametrize("n", FIR_TAP_COUNTS)
+@pytest.mark.parametrize("t_in,offset", [(4103, 0), (2050, 0), (8192, 1),
+                                         (3, 0), (1, 0)])
+def test_banded_fir_staging_paths(cuda_device, n, mode, t_in, offset):
+    """Every tap count at ragged lengths (4-byte staging), and rows of a
+    multiple of 4 samples on a base 4 bytes past a 16-byte boundary
+    (offset 1: the plan must pick 4-byte staging too)."""
+    taps = _fir_taps(n)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + t_in)
+    flat = torch.randn(3 * t_in + offset, generator=gen, device=cuda_device)
+    x = flat[offset:].view(3, t_in)
+    assert x.is_contiguous()
+    plan = filters.fir_plan(n, mode, t_in, 3, x.data_ptr() % 16 == 0)
+    assert plan.vec == (t_in % 4 == 0 and offset == 0)
+    got = filters.banded_fir(x, taps, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (3, plan.t_out)
+    if plan.t_out:
+        ref = filters.banded_fir_plain(x, taps, mode)
+        assert _max_err(got, ref) < 1.2e-4
+
+
 @pytest.mark.parametrize("bw,shape", [(20, (4, 307200)), (100, (2, 70001)),
                                       (5, (3, 130)), (100, (1, 1))])
 def test_fir_up2_fused_kernel_matches_plain(cuda_device, bw, shape):
@@ -123,6 +156,64 @@ def test_duc_from_spec_kernel_matches_plain(cuda_device, scs, bw, nant,
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["duc_from_spec"] == before + 1
     assert _max_err(got, ref) < 1.2e-4
+
+
+@pytest.mark.parametrize("mode", ["same", "up2", "down2"])
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("tiles_per_block", [1, 3, 8])
+def test_banded_fir_forced_ring(cuda_device, mode, stages, tiles_per_block):
+    """Both ring depths with blocks of one tile, of a few, and of more
+    tiles than the row has (a block's last tiles cross into the next
+    plane)."""
+    taps = filters.fir_coeff(30, 20)
+    gen = torch.Generator(device=cuda_device).manual_seed(stages)
+    x = torch.randn((3, 20480), generator=gen, device=cuda_device)
+    plan = filters.fir_plan(len(taps), mode, 20480, 3,
+                            tiles_per_block=tiles_per_block, stages=stages)
+    got = filters._banded_fir_launch(x, taps, plan)
+    ref = filters.banded_fir_plain(x, taps, mode)
+    assert _max_err(got, ref) < 1.2e-4
+    with pytest.raises(ValueError):
+        filters._banded_fir_launch(x[:2].contiguous(), taps, plan)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 7, 8, 12, 14, 16])
+@pytest.mark.parametrize("scs,bw,n_slots", [(30, 20, 1), (30, 20, 3),
+                                            (30, 100, 2)])
+def test_duc_from_spec_every_cluster_size(cuda_device, cluster, scs, bw,
+                                          n_slots):
+    """A forced plan at each cluster size: padded grids (14 or 42 symbols
+    in clusters of 3, 4, 8, 16, ...), clusters across slot boundaries, the
+    1-slot waveform."""
+    fc = 3_500_000_000
+    fd = _grid(cuda_device, scs, bw, 2, n_slots)
+    spec = ofdm.tx_spec_planes(fd, scs, bw, fc)
+    nfft = spec.shape[-1]
+    cps, pc = ofdm._cp_table(scs, nfft), ofdm._phase_comp(scs, nfft, fc)
+    fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
+    plan = filters.duc_plan(2, n_slots, nfft, len(fir), len(hb), cps,
+                            cluster)
+    before = kernels.LAUNCHES["duc_from_spec"]
+    got = filters._duc_from_spec(spec, cps, fir, hb, pc, plan=plan)
+    ref = torch.cat(filters.duc_from_spec_planes_plain(spec, cps, fir, hb,
+                                                       pc))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["duc_from_spec"] == before + 1
+    assert _max_err(got, ref) < 1.2e-4
+
+
+def test_duc_from_spec_forced_plan_that_does_not_fit_raises(cuda_device):
+    fd = _grid(cuda_device, 30, 20, 1, 2)
+    spec = ofdm.tx_spec_planes(fd, 30, 20, 0)
+    cps, pc = ofdm._cp_table(30, 1024), ofdm._phase_comp(30, 1024, 0)
+    fir, hb = filters.fir_coeff(30, 20), filters.halfband_coeff()
+    with pytest.raises(ValueError):
+        filters.duc_plan(1, 2, 1024, len(fir), len(hb), cps, 17)
+    other = filters.duc_plan(1, 3, 1024, len(fir), len(hb), cps, 8)
+    before = kernels.LAUNCHES["duc_from_spec"]
+    with pytest.raises(ValueError):
+        filters._duc_from_spec(spec, cps, fir, hb, pc, plan=other)
+    assert kernels.LAUNCHES["duc_from_spec"] == before
 
 
 @pytest.mark.parametrize("scs,bw,launched", [
