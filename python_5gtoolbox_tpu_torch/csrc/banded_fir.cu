@@ -46,9 +46,9 @@
 //   of `stages` window buffers, the next stages - 1 tiles' windows in
 //   flight while one is computed. The plan gives small stages one tile
 //   and one buffer per block (the most resident blocks, which keep the
-//   most reads in flight) and stages above 16 tiles per SM two tiles
-//   through a ring of two; rings of 3 and 4 and longer blocks measured
-//   slower.
+//   most reads in flight) and stages of more than 64K outputs per SM two
+//   tiles through a ring of two; rings of 3 and 4 and longer blocks
+//   measured slower.
 //   Windows start on a multiple of 4 samples; with rows of a multiple of
 //   4 samples on a 16-byte aligned base every 16-byte chunk lies wholly
 //   inside or outside [0, t_in) and is copied (or zero-filled) as one;

@@ -33,12 +33,14 @@
 //      waveform's two ends stay zero. K = 8: 10 IDFTs per 8 symbols where
 //      a block per symbol computing both neighbours needs 24;
 //   4. duc::fir_up2_tiles over the window in equal tiles (multiples of 8
-//      outputs), both planes per pass. The cluster barriers are split: a
-//      block arrives once its timeline is published and runs the tiles
-//      that read no halo sample before it waits (at nfft 4096 the middle
-//      three of five are filtered while the edge blocks compute their
-//      second IDFT); it arrives again once its halo copies are done, runs
-//      the other tiles, and waits only before it exits.
+//      outputs), both planes per pass. The plan's tile table gives each
+//      symbol of a slot its tile length and the run of tiles that read no
+//      halo sample. The cluster barriers are split: a block arrives once
+//      its timeline is published and runs that run of tiles before it
+//      waits (at nfft 4096 the middle three of five are filtered while
+//      the edge blocks compute their second IDFT); it arrives again once
+//      its halo copies are done, runs the other tiles, and waits only
+//      before it exits.
 //
 // Bound on the H100: per 1x complex sample 2 x (n1 + n2) FMAs against
 // about 7.5 bytes in and 16 bytes out: operation-bound against the 67
@@ -171,16 +173,6 @@ __device__ inline void emit_symbol(const float* __restrict__ fre,
   }
 }
 
-// Whether the tile of outputs [u0, u0 + nz) of a symbol of len timeline
-// samples reads its window's halos: fir_up2_tiles reads the window from
-// u0 / 2 on, n1p + round_up4(nz / 2 + off) floats; the symbol's own
-// samples are [hl, hl + len).
-__device__ inline bool reads_halo(const Geometry& gm, int len, int u0,
-                                  int nz) {
-  return u0 / 2 < gm.hl ||
-         u0 / 2 + gm.n1p + round_up4(nz / 2 + gm.off) > gm.hl + len;
-}
-
 __device__ inline void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
@@ -194,6 +186,7 @@ __device__ inline void cluster_wait() {
 __global__ void __launch_bounds__(kThreads, 5)
 duc_from_spec_kernel(const float* __restrict__ spec,
                      const int* __restrict__ cps,
+                     const int* __restrict__ tiles,
                      const float* __restrict__ pc,
                      const float* __restrict__ tw,
                      const float* __restrict__ h, const float* __restrict__ g,
@@ -265,22 +258,23 @@ duc_from_spec_kernel(const float* __restrict__ spec,
     emit_symbol(ar, ai, nfft, lay.cp[m], scale, pc[2 * m], pc[2 * m + 1], 0,
                 len, br, bi);
   }
-  // Equal tiles of at most nz_tile outputs, multiples of 8 but the last.
-  // The tiles that read no halo sample run while the neighbours publish;
-  // the others once the halos are in.
+  // The tiles of the plan's table (tile length, the run [lo, hi) of
+  // tiles that read no halo sample): that run while the neighbours
+  // publish, the others once the halos are in.
   const int n_out = 2 * len;
-  const int n_tiles = max(1, (n_out + gm.nz_tile - 1) / gm.nz_tile);
-  const int tile = ((n_out + n_tiles - 1) / n_tiles + 7) & ~7;
+  const int tile = real ? __ldg(tiles + 3 * m) : 1;
+  const int lo = real ? __ldg(tiles + 3 * m + 1) : 0;
+  const int hi = real ? __ldg(tiles + 3 * m + 2) : 0;
+  const int n_tiles = (n_out + tile - 1) / tile;
   float* zre = z + static_cast<size_t>(a) * 2 * t;
   const size_t zplane = static_cast<size_t>(nant) * 2 * t;
   cluster_arrive();
   if (real) {
     __syncthreads();
-    for (int u0 = 0; u0 < n_out; u0 += tile)
-      if (!reads_halo(gm, len, u0, min(tile, n_out - u0)))
-        fir_up2_tiles<2>(gm, sxr + u0 / 2, win, sy, sh, sge, sgo, t,
-                         2 * sym_start + u0, min(tile, n_out - u0), zre,
-                         zplane);
+    for (int i = lo; i < hi; ++i)
+      fir_up2_tiles<2>(gm, sxr + i * tile / 2, win, sy, sh, sge, sgo, t,
+                       2 * sym_start + i * tile, min(tile, n_out - i * tile),
+                       zre, zplane);
   }
   // every block of the cluster has published its timeline
   cluster_wait();
@@ -313,11 +307,11 @@ duc_from_spec_kernel(const float* __restrict__ spec,
   cluster_arrive();
   if (real) {
     __syncthreads();
-    for (int u0 = 0; u0 < n_out; u0 += tile)
-      if (reads_halo(gm, len, u0, min(tile, n_out - u0)))
-        fir_up2_tiles<2>(gm, sxr + u0 / 2, win, sy, sh, sge, sgo, t,
-                         2 * sym_start + u0, min(tile, n_out - u0), zre,
-                         zplane);
+    for (int i = 0; i < n_tiles; ++i)
+      if (i < lo || i >= hi)
+        fir_up2_tiles<2>(gm, sxr + i * tile / 2, win, sy, sh, sge, sgo, t,
+                         2 * sym_start + i * tile,
+                         min(tile, n_out - i * tile), zre, zplane);
   }
   cluster_wait();
 }
@@ -327,59 +321,57 @@ duc_from_spec_kernel(const float* __restrict__ spec,
 // spec (2 nant, n_slots, 14, nfft) padded spectrum planes (real planes
 // first) -> z (2 nant, 2 n_slots slot_samples) waveform planes (real
 // planes first), contiguous float32 on the device. cps (14) int32 CP
-// lengths, pc (14, 2) float32 phase compensation (re, im) per symbol, tw
-// (2, nfft / 2) float32 cos and sin of 2 pi q / nfft, h (n1) FIR taps,
-// g (n2) halfband taps already scaled by sqrt(2), all on the device.
-// cp_min / cp_max: the smallest and largest CP; cluster: blocks (symbols)
-// per thread-block cluster, 1..16 (duc_plan). Returns the CUDA error of
-// the launch (0 on success; cudaErrorInvalidConfiguration where the card
-// cannot place such a cluster). Launches on `stream`, does not
-// synchronise.
+// lengths, tiles (14, 3) int32 the plan's tile table (tile length, first
+// and last + 1 halo-free tile, per symbol of a slot), pc (14, 2) float32
+// phase compensation (re, im) per symbol, tw (2, nfft / 2) float32 cos
+// and sin of 2 pi q / nfft, h (n1) FIR taps, g (n2) halfband taps already
+// scaled by sqrt(2), all on the device. cluster: blocks (symbols) per
+// thread-block cluster, 1..16; win: floats of a window plane; smem: bytes
+// of dynamic shared memory (taps, two window planes, the IDFT's buffer);
+// all from the host plan (ops/filters.py:duc_plan), which checks that
+// they fit. Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidConfiguration where the card cannot place such a
+// cluster). Launches on `stream`, does not synchronise.
 extern "C" int duc_from_spec(const float* spec, const int* cps,
-                             const float* pc, const float* tw, const float* h,
-                             const float* g, float* z, int nant, int n_slots,
-                             int nfft, int slot_samples, int cp_min,
-                             int cp_max, int n1, int n2, int cluster,
-                             void* stream) {
+                             const int* tiles, const float* pc,
+                             const float* tw, const float* h, const float* g,
+                             float* z, int nant, int n_slots, int nfft,
+                             int slot_samples, int n1, int n2, int cluster,
+                             int win, int smem, void* stream) {
   if (nant <= 0 || n_slots <= 0) return 0;
   int logn = 0;
   while ((1 << logn) < nfft) ++logn;
   if (nant > 65535 || n_slots > 65535 * 8 || n1 <= 0 || n2 < 3 ||
-      nfft < 4 || (1 << logn) != nfft || cp_min < 0 || cp_max < cp_min ||
-      cluster < 1 || cluster > 16 ||
-      2LL * n_slots * slot_samples > 0x7fffffffLL)
+      nfft < 4 || (1 << logn) != nfft || cluster < 1 || cluster > 16 ||
+      win <= 0 || smem <= 0 || 2LL * n_slots * slot_samples > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const duc::Geometry gm = duc::geometry(n1, n2);
-  // a halo comes from one neighbouring symbol only
-  if (gm.nz_tile < 8 || gm.hl > cp_min + nfft || gm.hr > cp_min + nfft)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int win = duc::round_up4(gm.hl + cp_max + nfft + gm.hr);
-  // the IDFT's buffer A, later the two planes' FIR intermediate
-  const int scratch = 2 * nfft > 2 * duc::kTileY ? 2 * nfft
-                                                  : 2 * duc::kTileY;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(gm.n1p) + 2 * gm.kp + 2 * win + scratch);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem + sizeof(duc::SlotLayout) > static_cast<size_t>(limit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(duc_from_spec_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(
-        duc_from_spec_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // each once per size reached: the opt-in above 48 KB, the non-portable
+  // cluster sizes, and whether a cluster of this size is placed with this
+  // much shared memory per block (a cluster the card cannot place is an
+  // error, not a slower launch)
+  static int opted = 48 * 1024;
+  static bool nonportable = false;
+  static int placed[17] = {};
+  cudaError_t err = cudaSuccess;
+  if (smem > opted) {
+    err = cudaFuncSetAttribute(duc_from_spec_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
+  }
+  if (cluster > 8 && !nonportable) {
+    err = cudaFuncSetAttribute(duc_from_spec_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    nonportable = true;
+  }
   const int n_sym = 14 * n_slots;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n_sym + cluster - 1) / cluster * cluster, nant, 1);
   cfg.blockDim = dim3(duc::kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -388,13 +380,16 @@ extern "C" int duc_from_spec(const float* spec, const int* cps,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // a cluster the card cannot place is an error, not a slower launch
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, duc_from_spec_kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaLaunchKernelEx(&cfg, duc_from_spec_kernel, spec, cps, pc, tw, h,
-                           g, z, nant, n_slots, nfft, logn, n1, n2, win);
+  if (smem > placed[cluster]) {
+    int active = 0;
+    err = cudaOccupancyMaxActiveClusters(&active, duc_from_spec_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    placed[cluster] = smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, duc_from_spec_kernel, spec, cps, tiles, pc,
+                           tw, h, g, z, nant, n_slots, nfft, logn, n1, n2,
+                           win);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "fir_up2_fused": ("fir_up2_fused", [_P] * 4 + [_I] * 4 + [_P]),
     "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
                               [_P] * 5 + [_I] * 6 + [_P]),
-    "duc_from_spec": ("duc_from_spec", [_P] * 7 + [_I] * 9 + [_P]),
+    "duc_from_spec": ("duc_from_spec", [_P] * 8 + [_I] * 9 + [_P]),
 }
 
 LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0,
@@ -60,6 +60,11 @@ LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0,
             "ldpc_minsum_layered_fast": 0, "ldpc_minsum_packed": 0,
             "fir_up2_fused": 0, "fir_up2_fused_symbols": 0,
             "duc_from_spec": 0}
+# the H100 SXM the kernels are planned for: streaming multiprocessors, and
+# the dynamic shared memory a block may opt in to on sm_90 (227 KB)
+H100_SMS = 132
+SMEM_OPTIN_BYTES = 232448
+
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 

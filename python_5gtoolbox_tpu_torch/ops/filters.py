@@ -115,11 +115,10 @@ def _device_taps(taps_key: bytes, scale: float, device: torch.device):
 FIR_THREADS = 256
 FIR_TILE = FIR_THREADS * 4 * 2     # branch positions per tile: 2 groups of
                                    # 4 consecutive outputs per thread
-FIR_RING_TILES_PER_SM = 16         # above this many tiles per SM, blocks of
-                                   # 2 tiles with a 2-window ring
-FIR_MAX_TILES_PER_BLOCK = 8
+FIR_RING_OUTPUTS_PER_SM = 1 << 16  # above this many outputs per SM, blocks
+                                   # of 2 tiles with a 2-window ring
+FIR_MAX_TILES_PER_BLOCK = 4        # the most the tuner tries
 FIR_MAX_STAGES = 2
-H100_SMS = 132
 
 
 def _round_up4(a: int) -> int:
@@ -145,7 +144,7 @@ class FirPlan:
     v_lo + tile + d) (down2: both phases, staged as the interleaved input
     x[2 (v_lo + d - kp) ..]). vec: the window is staged in 16-byte copies
     (rows of a multiple of 4 samples on a 16-byte aligned base), else
-    sample by sample.
+    sample by sample. The branches depend on (n, mode) only.
     """
     mode: str
     n: int
@@ -186,6 +185,14 @@ class FirPlan:
             floats += 2 * (self.tile + self.kp)
         return 4 * floats
 
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The C entry's arguments after (x, h, y)."""
+        return (self.planes, self.t_in, self.t_out, _MODES[self.mode],
+                self.kp, self.d,
+                self.phase[0] if self.phase else 0, self.tiles_per_block,
+                self.stages, int(self.vec))
+
     def tile_window(self, k: int) -> tuple[int, int, int]:
         """(plane, first position, first input sample) of tile k of the
         flattened (plane, tile) order; the window holds self.window
@@ -205,18 +212,21 @@ class FirPlan:
         return out.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
 def fir_plan(n: int, mode: str, t_in: int, planes: int, aligned: bool = True,
-             n_sm: int = H100_SMS, tiles_per_block: int | None = None,
+             tiles_per_block: int | None = None,
              stages: int | None = None) -> FirPlan:
     """The launch of csrc/banded_fir.cu for one stage of n taps over
     (planes, t_in) samples. aligned: the input's base address is a
     multiple of 16 bytes (the wrapper checks its tensor's).
 
-    A block takes one tile into one window buffer, or, where the stage has
-    more than FIR_RING_TILES_PER_SM tiles per SM, two tiles through a ring
-    of two (the second window arrives while the first is computed): the
-    fastest pair at every main-path shape but two, within 5 % there
-    (sim/time_filter_kernels.py --tune, PERF.md section 6).
+    A block takes one tile into one window buffer, or, where the stage
+    writes more than FIR_RING_OUTPUTS_PER_SM outputs per SM, two tiles
+    through a ring of two (the second window arrives while the first is
+    computed). That is the tuner's crossover (sim/time_filter_kernels.py
+    --tune, PERF.md section 6): the ring was faster at the two stages of
+    74.5K outputs per SM (up2 4x1228800, down2 8x2457600), one tile at
+    those of 37.2K and fewer.
     tiles_per_block, stages: forced values (the tuner's); ValueError
     outside 1..FIR_MAX_TILES_PER_BLOCK and 1..FIR_MAX_STAGES."""
     b, t_out, scale = _stage(n, mode, t_in)
@@ -239,7 +249,7 @@ def fir_plan(n: int, mode: str, t_in: int, planes: int, aligned: bool = True,
     positions = t_out if mode == "down2" else t_in
     tiles = -(-positions // FIR_TILE)
     total = planes * tiles
-    ring = total > FIR_RING_TILES_PER_SM * n_sm
+    ring = planes * t_out > FIR_RING_OUTPUTS_PER_SM * kernels.H100_SMS
     tpb = (2 if ring else 1) if tiles_per_block is None else tiles_per_block
     stages = (2 if ring else 1) if stages is None else stages
     if not (1 <= tpb <= FIR_MAX_TILES_PER_BLOCK
@@ -255,9 +265,11 @@ def fir_plan(n: int, mode: str, t_in: int, planes: int, aligned: bool = True,
 
 
 @functools.lru_cache(maxsize=64)
-def _device_branch_taps(taps_key: bytes, plan: FirPlan,
+def _device_branch_taps(taps_key: bytes, mode: str,
                         device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(plan.pack(np.frombuffer(taps_key, np.float64)),
+    taps = np.frombuffer(taps_key, np.float64)
+    # any plan of (n, mode) has the same branches
+    return torch.as_tensor(fir_plan(len(taps), mode, 4, 1).pack(taps),
                            device=device)
 
 
@@ -281,27 +293,30 @@ def banded_fir(planes: torch.Tensor, taps: np.ndarray,
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
     p, t = planes.shape
-    return _banded_fir_launch(planes, taps, fir_plan(
+    return _banded_fir_run(planes, taps, fir_plan(
         len(taps), mode, t, p, planes.data_ptr() % 16 == 0))
 
 
 def _banded_fir_launch(planes: torch.Tensor, taps: np.ndarray,
                        plan: FirPlan) -> torch.Tensor:
-    """banded_fir's launch as plan says (a plan made for these planes,
-    taps and alignment: the C entry refuses 16-byte staging otherwise)."""
-    p, t = planes.shape
-    if (plan.n, plan.planes, plan.t_in) != (len(taps), p, t):
+    """banded_fir's launch as a forced plan says (one made for these
+    planes, taps and alignment: the C entry refuses 16-byte staging
+    otherwise)."""
+    if (plan.n, plan.planes, plan.t_in) != (len(taps), *planes.shape):
         raise ValueError("banded_fir: the plan was made for other shapes")
-    y = torch.empty((p, plan.t_out), dtype=torch.float32,
+    return _banded_fir_run(planes, taps, plan)
+
+
+def _banded_fir_run(planes: torch.Tensor, taps: np.ndarray,
+                    plan: FirPlan) -> torch.Tensor:
+    y = torch.empty((plan.planes, plan.t_out), dtype=torch.float32,
                     device=planes.device)
-    if y.numel() == 0:
+    if plan.planes == 0 or plan.t_out == 0:
         return y
-    h = _device_branch_taps(_taps_key(taps), plan, planes.device)
+    h = _device_branch_taps(_taps_key(taps), plan.mode, planes.device)
     fn = kernels.library("banded_fir").banded_fir
-    rc = fn(planes.data_ptr(), h.data_ptr(), y.data_ptr(), p, t, plan.t_out,
-            _MODES[plan.mode], plan.kp, plan.d,
-            plan.phase[0] if plan.phase else 0, plan.tiles_per_block,
-            plan.stages, int(plan.vec), _stream(planes))
+    rc = fn(planes.data_ptr(), h.data_ptr(), y.data_ptr(), *plan.c_args,
+            _stream(planes))
     kernels.check("banded_fir", rc)
     kernels.LAUNCHES["banded_fir"] += 1
     return y
@@ -530,7 +545,7 @@ DUC_THREADS = 256
 DUC_TILE_Y = DUC_THREADS * 4
 DUC_MAX_CLUSTER = 16              # with non-portable cluster sizes allowed
 DUC_CLUSTER = 8                   # the largest portable cluster
-SMEM_PER_BLOCK = 232448           # H100: shared memory a block can opt in to
+DUC_STATIC_SMEM = 4 * 29          # the kernel's static duc::SlotLayout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -572,8 +587,13 @@ class DucPlan:
     last hl samples of symbol g - 1) and its right halo (the first hr of
     g + 1) from its neighbours' shared memory. A cluster's first block
     computes symbol g - 1's IDFT itself, its last block symbol g + 1's,
-    and the waveform's two ends stay zero. The tiles that read no halo
-    (reads_halo) run before the exchange.
+    and the waveform's two ends stay zero.
+
+    tile_table, which the kernel reads: per symbol of a slot m, (tile,
+    lo, hi): the symbol's 2 (cp + nfft) outputs go in tiles of `tile`
+    (the last shorter), and tiles lo .. hi - 1 read no halo sample, so
+    they run before the exchange. win (floats of each plane's window)
+    and smem_bytes (dynamic shared memory) set the kernel's layout.
     """
     nant: int
     n_slots: int
@@ -583,8 +603,9 @@ class DucPlan:
     cps: tuple
     cluster: int
     geometry: DucGeometry
-    win: int                # floats of each plane's window
+    win: int
     smem_bytes: int
+    tile_table: tuple
 
     @property
     def symbols(self) -> int:
@@ -611,29 +632,48 @@ class DucPlan:
     def idfts_per_symbol(self) -> float:
         return self.idfts / self.symbols
 
-    def tiles(self, g: int) -> list[tuple[int, int]]:
-        """(first output, outputs) of each tile of symbol g's 2 (cp +
-        nfft) outputs: equal tiles, multiples of 8 but the last."""
-        n_out = 2 * (self.cps[g % 14] + self.nfft)
-        n_tiles = -(-n_out // self.geometry.nz_tile)
-        tile = (-(-n_out // n_tiles) + 7) // 8 * 8
-        return [(u, min(tile, n_out - u)) for u in range(0, n_out, tile)]
+    def tiles(self, g: int) -> tuple[list[tuple[int, int]], range]:
+        """Symbol g's tiles as the kernel walks them from tile_table:
+        [(first output, outputs)], and the indices of those that read no
+        halo."""
+        m = g % 14
+        tile, lo, hi = self.tile_table[3 * m:3 * m + 3]
+        n_out = 2 * (self.cps[m] + self.nfft)
+        return ([(u, min(tile, n_out - u)) for u in range(0, n_out, tile)],
+                range(lo, hi))
 
-    def reads_halo(self, g: int, u0: int, nz: int) -> bool:
-        """Whether the tile runs after the halo exchange: its window
-        stretch [u0/2, u0/2 + n1p + round_up4(nz/2 + off)) reaches a halo
-        (the symbol's own samples are [hl, hl + cp + nfft))."""
-        gm, length = self.geometry, self.cps[g % 14] + self.nfft
-        return (u0 // 2 < gm.hl or u0 // 2 + gm.n1p
-                + _round_up4(nz // 2 + gm.off) > gm.hl + length)
+
+def _tile_table(gm: DucGeometry, nfft: int, cps: tuple) -> tuple:
+    """Per symbol of a slot: equal tiles of at most nz_tile outputs,
+    multiples of 8 but the last, and the run of tiles that read no halo.
+    A tile of outputs [u0, u0 + nz) reads its window from u0 / 2 on, n1p +
+    round_up4(nz / 2 + off) floats (csrc/duc_common.cuh:fir_up2_tiles);
+    the symbol's own samples are [hl, hl + cp + nfft)."""
+    out = []
+    for cp in cps:
+        n_out = 2 * (cp + nfft)
+        n_tiles = -(-n_out // gm.nz_tile)
+        tile = (-(-n_out // n_tiles) + 7) // 8 * 8
+        free = [i for i, u0 in enumerate(range(0, n_out, tile))
+                if u0 // 2 >= gm.hl and u0 // 2 + gm.n1p + _round_up4(
+                    min(tile, n_out - u0) // 2 + gm.off) <= gm.hl + cp + nfft]
+        out += [tile, free[0], free[-1] + 1] if free else [tile, 0, 0]
+    return tuple(out)
 
 
 def duc_plan(nant: int, n_slots: int, nfft: int, n1: int, n2: int, cps,
              cluster: int | None = None) -> DucPlan:
     """The launch of csrc/duc_from_spec.cu; raises (ValueError) where the
     shapes or a forced cluster size do not fit."""
-    cps = tuple(int(c) for c in cps)
-    k = DUC_CLUSTER if cluster is None else int(cluster)
+    if not isinstance(cps, tuple):
+        cps = tuple(int(c) for c in cps)
+    return _duc_plan(nant, n_slots, nfft, n1, n2, cps,
+                     DUC_CLUSTER if cluster is None else int(cluster))
+
+
+@functools.lru_cache(maxsize=64)
+def _duc_plan(nant: int, n_slots: int, nfft: int, n1: int, n2: int,
+              cps: tuple, k: int) -> DucPlan:
     if not 1 <= k <= DUC_MAX_CLUSTER:
         raise ValueError(f"duc_from_spec: cluster {k} outside "
                          f"1..{DUC_MAX_CLUSTER}")
@@ -649,11 +689,12 @@ def duc_plan(nant: int, n_slots: int, nfft: int, n1: int, n2: int, cps,
     # taps, two window planes, the IDFT's second buffer (later the two
     # planes' FIR intermediate)
     smem = 4 * (gm.n1p + 2 * gm.kp + 2 * win + 2 * max(nfft, DUC_TILE_Y))
-    if smem + 128 > SMEM_PER_BLOCK:         # + the static slot layout
+    if smem + DUC_STATIC_SMEM > kernels.SMEM_OPTIN_BYTES:
         raise ValueError(f"duc_from_spec: {smem} bytes of shared memory per "
                          f"block do not fit")
     return DucPlan(nant=nant, n_slots=n_slots, nfft=nfft, n1=n1, n2=n2,
-                   cps=cps, cluster=k, geometry=gm, win=win, smem_bytes=smem)
+                   cps=cps, cluster=k, geometry=gm, win=win, smem_bytes=smem,
+                   tile_table=_tile_table(gm, nfft, cps))
 
 
 def checked_duc_plan(plan: DucPlan | None, nant: int, n_slots: int,
@@ -676,7 +717,7 @@ def _duc_from_spec(spec_planes: torch.Tensor, cps, fir_taps: np.ndarray,
                    plan: DucPlan | None = None) -> torch.Tensor:
     """duc_from_spec_planes with both output planes in one (2*ant, T2)
     tensor (real planes first). plan: a forced duc_plan (checked)."""
-    cps = tuple(int(c) for c in cps)
+    cps = tuple(map(int, cps))
     if spec_planes.device.type == "cpu":
         return torch.cat(duc_from_spec_planes_plain(
             spec_planes, cps, fir_taps, hb_taps, phase_comp))
@@ -692,17 +733,18 @@ def _duc_from_spec(spec_planes: torch.Tensor, cps, fir_taps: np.ndarray,
     slot_samples = sum(cps) + 14 * nfft
     dev = spec_planes.device
     h, g = _fused_taps(fir_taps, hb_taps, dev)
-    pc = np.asarray(phase_comp, np.complex64)
-    pc = np.stack([pc.real, pc.imag], axis=1).astype(np.float32)
+    # (re, im) of each symbol's factor, interleaved
+    pc = np.ascontiguousarray(phase_comp, np.complex64).view(np.float32)
     z = torch.empty((p2, 2 * s * slot_samples), dtype=torch.float32,
                     device=dev)
     fn = kernels.library("duc_from_spec").duc_from_spec
     rc = fn(spec_planes.data_ptr(), _device_ints(cps, dev).data_ptr(),
+            _device_ints(plan.tile_table, dev).data_ptr(),
             _device_floats(pc.tobytes(), dev).data_ptr(),
             _device_floats(_twiddles(nfft), dev).data_ptr(), h.data_ptr(),
             g.data_ptr(), z.data_ptr(), p2 // 2, s, nfft, slot_samples,
-            min(cps), max(cps), len(fir_taps), len(hb_taps), plan.cluster,
-            _stream(spec_planes))
+            len(fir_taps), len(hb_taps), plan.cluster, plan.win,
+            plan.smem_bytes, _stream(spec_planes))
     kernels.check("duc_from_spec", rc)
     kernels.LAUNCHES["duc_from_spec"] += 1
     return z

@@ -42,18 +42,16 @@ import numpy as np
 import torch
 
 from python_5gtoolbox_tpu_torch import kernels
+from python_5gtoolbox_tpu_torch.kernels import H100_SMS, SMEM_OPTIN_BYTES
 from python_5gtoolbox_tpu_torch.ops.ldpc.tables import BG_DIMS, shift_table
 
 _INF = 1e30
 _ATANH_CLAMP = 19.07   # the reference's atanh saturation
-# dynamic shared memory a block may opt in to on sm_90 (227 KB)
-_SMEM_OPTIN_BYTES = 232448
 _PACKED_MAX_GROUP = 32
 _MAX_CLUSTER = 16          # blocks per cluster, non-portable sizes allowed
 # threads per block the kernels are compiled for (csrc/ldpc_common.cuh):
 # flooded, layered, warp-per-codeword layered
 _MAX_THREADS = {"flooded": 1024, "layered": 512, "warp": 256}
-H100_SMS = 132
 # check-node widths of the kernels (csrc/ldpc_common.cuh:check): 6 and 10
 # unrolled, wider rows (BG1's four of degree 19) in a compact loop
 DEGREE_CLASSES = (6, 10, 19)
@@ -327,7 +325,7 @@ def packed_group_limit(zc: int, bgn: int) -> int:
     even one fits."""
     g = 0
     while g < _PACKED_MAX_GROUP and \
-            smem_bytes(bgn, zc, g + 1, zc) <= _SMEM_OPTIN_BYTES:
+            smem_bytes(bgn, zc, g + 1, zc) <= SMEM_OPTIN_BYTES:
         g += 1
     return g
 
@@ -402,7 +400,7 @@ def plan_launch(bgn: int, zc: int, batch: int, schedule: str = "flooded",
     else:
         group = 1
     fit = [k for k, zl in slices.items()
-           if smem_bytes(bgn, zc, group, zl) <= _SMEM_OPTIN_BYTES]
+           if smem_bytes(bgn, zc, group, zl) <= SMEM_OPTIN_BYTES]
     if warp:
         fit = [k for k in fit if k == 1]
     n_clusters = -(-batch // group)
@@ -415,7 +413,7 @@ def plan_launch(bgn: int, zc: int, batch: int, schedule: str = "flooded",
         if packed:
             raise ValueError("ldpc_minsum_packed keeps LR in shared memory")
         if (cluster not in (None, 1) or smem_bytes(
-                bgn, zc, group, zc, False) > _SMEM_OPTIN_BYTES):
+                bgn, zc, group, zc, False) > SMEM_OPTIN_BYTES):
             raise ValueError("LR in device memory takes one block per "
                              "cluster whose LQ fits in shared memory")
         threads = threads or min(512, 32 * ncols * group)

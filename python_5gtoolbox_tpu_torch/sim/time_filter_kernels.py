@@ -24,11 +24,14 @@ on PYTHONPATH, so one call can time two trees of the repository in turns
 
 --tune times banded_fir at the same shapes with each forced pair of ring
 depth (stages) and tiles per block (TUNE_STAGES x TUNE_TILES); the plan's
-rule (ops/filters.py:fir_plan, FIR_RING_TILES_PER_SM) comes from it.
+rule (ops/filters.py:fir_plan, FIR_RING_OUTPUTS_PER_SM) comes from it.
 
 Per shape one JSON line: device_ms (device time per call with the
 launches back to back, sim/time_ldpc_kernels.py:device_ms), call_ms (CUDA
-events around consecutive calls, host time included), the largest
+events around consecutive calls, host time included), host_ms (the
+wrapper's own time per call on the host: the least of five runs of
+consecutive calls, timed on the host's clock without synchronising), the
+largest
 difference from the plain version, the card's name and power limit and,
 where the tree has them, the launch plan (fir_plan, duc_plan). Inputs
 come from a fixed seed. Needs a CUDA device.
@@ -40,6 +43,7 @@ import itertools
 import json
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -63,6 +67,22 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def host_ms(fn, reps: int = 50, rounds: int = 5) -> float:
+    """Host time per call of fn(): the calls only enqueue launches, so the
+    host's clock around reps of them, with no synchronisation in between,
+    measures the wrapper; the least of `rounds` runs."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e3 * best / reps
 
 
 def _plan_dict(plan) -> dict:
@@ -93,6 +113,7 @@ def main(label: str = "") -> None:
         err = (got - plain()).abs().max().item()
         row = dict(tree=label, kernel=kernel, shape=list(shape),
                    device_ms=device_ms(fn, reps), call_ms=call_ms(fn, reps),
+                   host_ms=host_ms(fn, reps),
                    max_abs_err=err, plan=_plan_dict(plan), card=smi, **extra)
         print(json.dumps(row), flush=True)
 

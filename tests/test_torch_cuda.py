@@ -160,15 +160,15 @@ def test_duc_from_spec_kernel_matches_plain(cuda_device, scs, bw, nant,
 
 @pytest.mark.parametrize("mode", ["same", "up2", "down2"])
 @pytest.mark.parametrize("stages", [1, 2])
-@pytest.mark.parametrize("tiles_per_block", [1, 3, 8])
+@pytest.mark.parametrize("tiles_per_block", [1, 3, 4])
 def test_banded_fir_forced_ring(cuda_device, mode, stages, tiles_per_block):
     """Both ring depths with blocks of one tile, of a few, and of more
-    tiles than the row has (a block's last tiles cross into the next
-    plane)."""
+    tiles than the row has (3 tiles, 2 in down2: a block's last tiles
+    cross into the next plane)."""
     taps = filters.fir_coeff(30, 20)
     gen = torch.Generator(device=cuda_device).manual_seed(stages)
-    x = torch.randn((3, 20480), generator=gen, device=cuda_device)
-    plan = filters.fir_plan(len(taps), mode, 20480, 3,
+    x = torch.randn((3, 6144), generator=gen, device=cuda_device)
+    plan = filters.fir_plan(len(taps), mode, 6144, 3,
                             tiles_per_block=tiles_per_block, stages=stages)
     got = filters._banded_fir_launch(x, taps, plan)
     ref = filters.banded_fir_plain(x, taps, mode)

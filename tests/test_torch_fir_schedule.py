@@ -10,8 +10,8 @@ duc_plan) that these tests reach:
   tests/test_pallas_filters.py;
 * a model of duc_from_spec's cluster halo exchange (each block's window
   assembled from its neighbours' timelines, or from an IDFT of its own
-  where the plan says so; the tiles of the plan) against
-  duc_from_spec_planes_plain;
+  where the plan says so; the tiles walked as the kernel walks the plan's
+  tile table) against duc_from_spec_planes_plain;
 * the plans' rules: IDFTs per symbol, padded grids, refusals.
 """
 import numpy as np
@@ -19,6 +19,7 @@ import pytest
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
+from python_5gtoolbox_tpu_torch import kernels
 from python_5gtoolbox_tpu_torch.ops import filters, ofdm
 
 TOL = 1.2e-4
@@ -119,16 +120,17 @@ def test_fir_plan_keeps_every_tap():
 
 def test_fir_plan_launch_shape():
     """One tile and one window per block, or two tiles through a ring of
-    two above 16 tiles per SM; every tile is served once; windows start on
-    multiples of 4 samples."""
+    two above 64K outputs per SM; every tile is served once; windows start
+    on multiples of 4 samples."""
     small = filters.fir_plan(71, "same", 3001, 8)
     assert (small.tiles_per_block, small.stages, small.blocks) == (1, 1, 16)
-    # the six stages of a 245.76 Msps sweep point: the two largest ring
+    # the six stages of a 245.76 Msps sweep point: the two of 74.5K
+    # outputs per SM ring, down2 8x1228800 (37.2K) does not
     hb = 55
     for (p, t, mode), ring in [((4, 614400, "up2"), False),
                                ((4, 1228800, "up2"), True),
                                ((8, 2457600, "down2"), True),
-                               ((8, 1228800, "down2"), True),
+                               ((8, 1228800, "down2"), False),
                                ((8, 614400, "down2"), False),
                                ((8, 307200, "same"), False)]:
         plan = filters.fir_plan(hb, mode, t, p)
@@ -147,7 +149,8 @@ def test_fir_plan_launch_shape():
     assert (forced.tiles_per_block, forced.stages, forced.blocks) == (3, 2, 3)
     assert forced.smem_bytes == 4 * (2 * forced.kp + 2 * forced.window
                                      + 2 * (forced.tile + forced.kp))
-    for kw in (dict(tiles_per_block=9), dict(stages=0), dict(stages=3)):
+    for kw in (dict(tiles_per_block=filters.FIR_MAX_TILES_PER_BLOCK + 1),
+               dict(tiles_per_block=0), dict(stages=0), dict(stages=3)):
         with pytest.raises(ValueError):
             filters.fir_plan(71, "same", 9000, 3, **kw)
 
@@ -164,7 +167,9 @@ def duc_cluster_model(spec_planes: torch.Tensor, cps, fir, hb, pc,
     waveform's ends; padding blocks emit nothing and are never read. Each
     tile's FIR outputs and halfband outputs come from the window only
     (an index outside it fails); a tile the plan runs before the halo
-    exchange sees NaN halos and must not read them."""
+    exchange sees NaN halos and must not read them. The tiles come from
+    the plan's tile table as the kernel reads it: the halo-free run
+    first, then the others."""
     nant, nfft, k_cl = plan.nant, plan.nfft, plan.cluster
     gm, n_sym = plan.geometry, plan.symbols
     sym = filters._spec_symbols_plain(spec_planes, pc).double().numpy()
@@ -209,11 +214,14 @@ def duc_cluster_model(spec_planes: torch.Tensor, cps, fir, hb, pc,
             start = (g // 14) * slot + starts[g % 14]
             x_lo = start - gm.hl
             n_out = 2 * len(tl[g])
+            tiles, free = plan.tiles(g)
             covered = 0
-            for u0, nz in plan.tiles(g):
-                assert u0 == covered and nz % 2 == 0 and nz <= gm.nz_tile
+            for i in [*free, *(i for i in range(len(tiles))
+                               if i not in free)]:
+                u0, nz = tiles[i]
+                assert nz % 2 == 0 and nz <= gm.nz_tile
                 covered += nz
-                w = win if plan.reads_halo(g, u0, nz) else early
+                w = early if i in free else win
                 # the kernel's FIR reads whole float4s of the window
                 assert (u0 // 2 + gm.n1p + filters._round_up4(nz // 2 + gm.off)
                         <= len(win))
@@ -281,7 +289,8 @@ def test_duc_plan_idfts_per_symbol_at_bench_width():
     assert plan.idfts_per_symbol <= 1.25
     assert plan.idfts == 896 + 2 * (896 // 8) - 2
     assert filters.duc_plan(2, 64, 4096, 287, 55, cps, 1).idfts == 3 * 896 - 2
-    assert plan.smem_bytes <= 3 * plan.smem_bytes < filters.SMEM_PER_BLOCK
+    assert 3 * plan.smem_bytes + filters.DUC_STATIC_SMEM \
+        < kernels.SMEM_OPTIN_BYTES
     # the sweep's shape: 20 slots of nfft 1024, 71 + 55 taps
     sweep = filters.duc_plan(2, 20, 1024, 71, 55, ofdm._cp_table(30, 1024))
     assert sweep.blocks == 280 and sweep.idfts_per_symbol <= 1.25
@@ -294,7 +303,9 @@ def test_duc_plan_even_tiles():
         cps = ofdm._cp_table(30, nfft)
         plan = filters.duc_plan(1, 1, nfft, n1, 55, cps)
         for g in range(14):
-            tiles = plan.tiles(g)
+            tiles, _ = plan.tiles(g)
+            assert [u0 for u0, _ in tiles] == list(
+                range(0, 2 * (cps[g] + nfft), tiles[0][1]))
             assert sum(nz for _, nz in tiles) == 2 * (cps[g] + nfft)
             assert all(nz % 8 == 0 for _, nz in tiles[:-1])
             assert max(nz for _, nz in tiles) <= plan.geometry.nz_tile
@@ -304,14 +315,16 @@ def test_duc_plan_even_tiles():
 def test_duc_plan_halo_free_tiles():
     """At the bench width the middle three of a symbol's five tiles read
     no halo (they run before the cluster wait); at nfft 1024 both tiles
-    read one."""
+    read one. The table the kernel receives holds exactly that."""
     wide = filters.duc_plan(2, 64, 4096, 287, 55, ofdm._cp_table(30, 4096))
     narrow = filters.duc_plan(2, 20, 1024, 71, 55, ofdm._cp_table(30, 1024))
     for g in range(14):
-        assert [wide.reads_halo(g, *t) for t in wide.tiles(g)] == \
-            [True, False, False, False, True]
-        assert [narrow.reads_halo(g, *t) for t in narrow.tiles(g)] == \
-            [True, True]
+        tiles, free = wide.tiles(g)
+        assert len(tiles) == 5 and free == range(1, 4)
+        tiles, free = narrow.tiles(g)
+        assert len(tiles) == 2 and len(free) == 0
+    assert len(wide.tile_table) == 3 * 14
+    assert wide.tile_table[:3] == (wide.tiles(0)[0][0][1], 1, 4)
 
 
 def test_duc_plan_refusals():
