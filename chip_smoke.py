@@ -11,9 +11,11 @@ then drives the port's paths through its entry points:
     scs 30, BW 100, 64 slots, 2 antennas, 245.76 Msps): the spectrum DUC
     kernel, held against the plain path;
   * the same sweep with waveform, channel and RX front end at 245.76
-    Msps (spectrum DUC, halfband up/down stages, FIR, LDPC), and one
-    waveform each with a timing error (flat fused FIR + halfband) and at
-    scs 15 / BW 5 (symbol DUC kernel);
+    Msps (spectrum DUC, halfband up/down stages, FIR, LDPC), and
+    gen_dl_waveform with a timing error (flat fused FIR + halfband) at BW
+    20 and at full width (scs 30 / BW 100, 273 RBs), and on the three
+    carriers below nfft 1024 (symbol DUC kernel: scs 15 / BW 5, scs 30 /
+    BW 10, scs 30 / BW 5);
   * the sweep on a small allocation (MCS 0, 12 RBs: Zc 80), whose decode
     goes through the small-lifting LDPC kernel;
   * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
@@ -29,8 +31,10 @@ host's share (call_ms) and the launch plan: cluster, group, threads and
 barriers per iteration for the LDPC kernels (ops/ldpc/decode.py:
 plan_launch), taps per branch, delay, tiles per block and staging path
 for banded_fir (ops/filters.py:fir_plan), cluster size and IDFTs per
-symbol for duc_from_spec (ops/filters.py:duc_plan). The FIR's library
-call (cuDNN) is timed as device time too.
+symbol for duc_from_spec (ops/filters.py:duc_plan), outputs per thread,
+blocks and staging for fir_up2_fused (fused_plan), symbols per
+block and copy runs for fir_up2_fused_symbols (fused_symbols_plan). The
+FIR's library call (cuDNN) is timed as device time too.
 
 The launch counters are zeroed just before each path and read just
 after. Each phase prints JSON lines; the last two lines are the kernel
@@ -462,10 +466,15 @@ def _case_fused(rng, shape, scs, bw, label):
     kern = functools.partial(filters.fir_up2_fused_planes, x, fir, hb)
     plain = functools.partial(filters.fir_up2_fused_plain, x, fir, hb)
     p, t = shape
+    plan = filters.fused_plan(p, t, len(fir), len(hb))
     n_bytes = 4 * (3 * p * t + len(fir) + len(hb))
     return ("fir_up2_fused", label, kern, plain, n_bytes,
             _fused_ops(len(fir), len(hb), p, t),
-            dict(shape=list(shape), taps=len(fir)))
+            dict(shape=list(shape), taps=len(fir),
+                 plan=dict(per=plan.geometry.per, lead=plan.geometry.lead,
+                           nz_tile=plan.geometry.nz_tile,
+                           blocks=plan.blocks,
+                           vec=plan.vec, smem_bytes=plan.smem_bytes)))
 
 
 def _case_symbols(rng, scs, bw, nant, n_slots):
@@ -481,10 +490,18 @@ def _case_symbols(rng, scs, bw, nant, n_slots):
                               fir, hb)
     t = n_slots * ofdm.slot_sample_count(scs, bw)
     p = 2 * nant
-    n_bytes = 4 * (symp.numel() + 2 * p * t + len(fir) + len(hb) + 14)
+    plan = filters.fused_symbols_plan(p, n_slots, nfft, len(fir), len(hb),
+                                      tuple(int(c) for c in cps))
+    n_bytes = 4 * (symp.numel() + 2 * p * t + len(fir) + len(hb))
     return ("fir_up2_fused_symbols", f"scs {scs}, BW {bw}, {n_slots} slots",
             kern, plain, n_bytes, _fused_ops(len(fir), len(hb), p, t),
-            dict(shape=list(symp.shape), taps=len(fir)))
+            dict(shape=list(symp.shape), taps=len(fir),
+                 plan=dict(group=plan.group, lead=plan.geometry.lead,
+                           blocks=plan.blocks,
+                           runs=sum(len(r) for r in plan.runs),
+                           vec_runs=sum(r[4] & 1 for rs in plan.runs
+                                        for r in rs),
+                           smem_bytes=plan.smem_bytes)))
 
 
 def _case_spec(fd, scs, bw, fc=int(3500e6), cluster=None):
@@ -542,11 +559,14 @@ def phase_duc_kernels(rng) -> dict:
     each kernel at its main path's shape, with the worst error of all its
     cases."""
     cases = [
+        # the main path's shape first: the full-width Dm waveform
+        _case_fused(rng, (4, 1228800), 30, 100, "Dm waveform, BW 100"),
         _case_fused(rng, (4, 307200), 30, 20, "Dm waveform, BW 20"),
         _case_fused(rng, (4, 3932160), 30, 100, "287 taps, 64 slots BW 100"),
         _case_fused(rng, (2, 15360), 30, 20, "1 slot, BW 20"),
         _case_symbols(rng, 15, 5, 2, 20),
         _case_symbols(rng, 30, 10, 2, 20),
+        _case_symbols(rng, 30, 5, 2, 20),
         _case_symbols(rng, 30, 5, 2, 1),
         _case_spec(_random_grid(rng, 30, 20, 2, 20), 30, 20),   # sweep_245
         _case_spec(_random_grid(rng, 30, 40, 2, 8), 30, 40),
@@ -809,59 +829,95 @@ def phase_ldpc_bf() -> None:
     emit("ldpc_bf", zc=zc, bgn=bgn, batch=batch, snr_db=snr, runs=out)
 
 
-def phase_waveforms() -> dict:
-    """gen_dl_waveform at 245.76 Msps on the two branches the sweep does
-    not take: with a timing error Dm (OFDM apart, then fir_up2_fused) and
-    at scs 15 / BW 5 (nfft 512: fir_up2_fused_symbols), each held against
-    the plain versions. Returns the launches of those two kernels."""
-    carrier, pdsch, _, _, _ = sim.bench_link_level_config()
-    n_slots, out = 20, {}
+def _gen_waveform(carrier, pdsch, n_slots, seed, kernel, dm=None):
+    """gen_dl_waveform at 245.76 Msps on the card -> (fd, td, dl, launches
+    of `kernel` in the checked run, warm wall ms of one more run)."""
     wf = dict(numofslots=n_slots, startSFN=0, startslot=0,
               samplerate_in_mhz=245.76)
+
+    def run():
+        nr_pdsch = Pdsch(pdsch, carrier, rng=np.random.default_rng(seed),
+                         device=DEV)
+        return dl_wf.gen_dl_waveform(wf, carrier, [nr_pdsch], Dm=dm)
+    kernels.reset_launches()
+    fd, td, dl, _ = run()
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES[kernel]
+    if launches <= 0:
+        raise AssertionError(f"gen_dl_waveform never launched {kernel}")
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return fd, td, dl, launches, (time.perf_counter() - t0) * 1e3
+
+
+def phase_waveforms() -> dict:
+    """gen_dl_waveform at 245.76 Msps on the two branches the sweep does
+    not take, each held against the plain versions: with a timing error
+    Dm (OFDM apart, then fir_up2_fused and the remaining halfband stages)
+    at BW 20 and at full width (scs 30 / BW 100, 273 RBs: fir_up2_fused
+    at 4x1228800 with 287 + 55 taps is the only filter stage), and without
+    Dm on the three carriers below nfft 1024 (fir_up2_fused_symbols):
+    scs 15 / BW 5, scs 30 / BW 10 and scs 30 / BW 5 (11 RBs, the PDSCH
+    narrowed to them). Also the DDC on the BW 20 waveform against its plain
+    stages. Returns the launches of the two kernels, summed over the
+    cases."""
+    carrier, pdsch, _, _, _ = sim.bench_link_level_config()
+    n_slots, out, cases = 20, {"fir_up2_fused": 0,
+                               "fir_up2_fused_symbols": 0}, []
     hb = filters.halfband_coeff()
+    dm = np.full((n_slots, 14), 2e-9)
 
-    nr_pdsch = Pdsch(pdsch, carrier, rng=np.random.default_rng(7), device=DEV)
-    kernels.reset_launches()
-    _, td, dl, _ = dl_wf.gen_dl_waveform(
-        wf, carrier, [nr_pdsch], Dm=np.full((n_slots, 14), 2e-9))
-    torch.cuda.synchronize()
-    out["fir_up2_fused"] = kernels.LAUNCHES["fir_up2_fused"]
-    shape_dm = list(dl.shape)
-    ref = filters.fir_up2_fused_plain(
-        torch.cat([td.real, td.imag]), filters.fir_coeff(30, 20), hb)
-    for _ in range(2):
-        ref = filters.banded_fir_plain(ref, hb, "up2")
-    err_dm = _check("gen_dl_waveform", "with Dm", dl,
-                    torch.complex(ref[:2], ref[2:]))
-
-    # the DDC on that waveform against its plain stages: three halfband
-    # down2, then the FIR
-    ddc = filters.rx_channel_filter(dl, 30, 20, 245.76e6)
-    ref = torch.cat([dl.real, dl.imag])
-    for _ in range(3):
-        ref = filters.banded_fir_plain(ref, hb, "down2")
-    ref = filters.banded_fir_plain(ref, filters.fir_coeff(30, 20), "same")
-    err_ddc = _check("rx_channel_filter", "245.76 Msps", ddc,
+    for bw, rbs, seed in ((20, 20, 7), (100, 273, 9)):
+        car = dict(carrier, BW=bw)
+        pd = dict(pdsch, ResAlloType1=dict(pdsch["ResAlloType1"],
+                                           RBSize=rbs))
+        _, td, dl, n, ms = _gen_waveform(car, pd, n_slots, seed,
+                                         "fir_up2_fused", dm)
+        out["fir_up2_fused"] += n
+        ref = filters.fir_up2_fused_plain(
+            torch.cat([td.real, td.imag]), filters.fir_coeff(30, bw), hb)
+        for _ in range(int(np.log2(filters._oversample(30, bw,
+                                                       245.76e6))) - 1):
+            ref = filters.banded_fir_plain(ref, hb, "up2")
+        err = _check("gen_dl_waveform", f"with Dm, BW {bw}", dl,
                      torch.complex(ref[:2], ref[2:]))
+        cases.append(dict(case=f"Dm, scs 30, BW {bw}, {rbs} RBs",
+                          kernel="fir_up2_fused", launches=n,
+                          td_shape=list(td.shape), dl_shape=list(dl.shape),
+                          max_abs_err=err, warm_ms=ms))
+        if bw == 20:
+            # the DDC on that waveform against its plain stages: three
+            # halfband down2, then the FIR
+            ddc = filters.rx_channel_filter(dl, 30, 20, 245.76e6)
+            ref = torch.cat([dl.real, dl.imag])
+            for _ in range(3):
+                ref = filters.banded_fir_plain(ref, hb, "down2")
+            ref = filters.banded_fir_plain(ref, filters.fir_coeff(30, 20),
+                                           "same")
+            err_ddc = _check("rx_channel_filter", "245.76 Msps", ddc,
+                             torch.complex(ref[:2], ref[2:]))
+        del td, dl, ref
 
-    carrier15 = dict(carrier, scs=15, BW=5)
-    nr_pdsch = Pdsch(pdsch, carrier15, rng=np.random.default_rng(8),
-                     device=DEV)
-    kernels.reset_launches()
-    fd, _, dl, _ = dl_wf.gen_dl_waveform(wf, carrier15, [nr_pdsch])
-    torch.cuda.synchronize()
-    out["fir_up2_fused_symbols"] = kernels.LAUNCHES["fir_up2_fused_symbols"]
-    # fd is the unrolled grid; the waveform was made from the rolled one
-    grid = torch.roll(fd.reshape(2, n_slots, 14, -1), -1, dims=0)
-    ref = _plain_duc(grid, 15, 5, int(carrier15["carrier_frequency_in_mhz"]
-                                      * 1e6), 245.76e6)
-    err_15 = _check("gen_dl_waveform", "scs 15, BW 5", dl, ref)
-    for name, count in out.items():
-        if count <= 0:
-            raise AssertionError(f"gen_dl_waveform never launched {name}")
-    emit("waveforms_245", launches=out, dl_shape_dm=shape_dm,
-         dl_shape_scs15=list(dl.shape), max_abs_err_dm=err_dm,
-         max_abs_err_ddc=err_ddc, max_abs_err_scs15=err_15)
+    for scs, bw, rbs, seed in ((15, 5, 20, 8), (30, 10, 20, 10),
+                               (30, 5, 11, 11)):
+        car = dict(carrier, scs=scs, BW=bw)
+        pd = dict(pdsch, ResAlloType1=dict(pdsch["ResAlloType1"],
+                                           RBSize=rbs))
+        fd, _, dl, n, ms = _gen_waveform(car, pd, n_slots, seed,
+                                         "fir_up2_fused_symbols")
+        out["fir_up2_fused_symbols"] += n
+        # fd is the unrolled grid; the waveform was made from the rolled one
+        grid = torch.roll(fd.reshape(2, n_slots, 14, -1), -1, dims=0)
+        ref = _plain_duc(grid, scs, bw, int(car["carrier_frequency_in_mhz"]
+                                            * 1e6), 245.76e6)
+        err = _check("gen_dl_waveform", f"scs {scs}, BW {bw}", dl, ref)
+        cases.append(dict(case=f"scs {scs}, BW {bw}, {rbs} RBs",
+                          kernel="fir_up2_fused_symbols", launches=n,
+                          dl_shape=list(dl.shape), max_abs_err=err,
+                          warm_ms=ms))
+    emit("waveforms_245", launches=out, n_slots=n_slots, nant=2,
+         cases=cases, max_abs_err_ddc=err_ddc)
     return out
 
 
@@ -890,7 +946,8 @@ def main() -> None:
     table = []
     # launches: banded_fir and ldpc_minsum_flooded in the carrier-rate
     # sweep, duc_from_spec in the OFDM + DUC run, the two other DUC kernels
-    # in their gen_dl_waveform call, ldpc_minsum_packed in the
+    # in their gen_dl_waveform calls (summed: 2 Dm waveforms, 3 carriers
+    # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
     # decoder bench through ldpc_decode
     for name, src, replaces in [

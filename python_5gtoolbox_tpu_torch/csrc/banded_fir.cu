@@ -53,8 +53,6 @@
 //   4 samples on a 16-byte aligned base every 16-byte chunk lies wholly
 //   inside or outside [0, t_in) and is copied (or zero-filled) as one;
 //   otherwise the plan picks 4-byte copies.
-#include <stdint.h>
-
 #include "duc_common.cuh"
 
 namespace {
@@ -76,10 +74,6 @@ struct Args {
   int stages;            // window buffers in the ring, 1..kMaxStages
 };
 
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Input samples [lo, lo + len) of row xp, zeros outside [0, t_in), into
 // dst, asynchronously; commits one cp.async group per thread. lo and len
 // are multiples of 4.
@@ -90,29 +84,16 @@ __device__ inline void stage(float* dst, const float* xp, int lo, int len,
     for (int c = threadIdx.x; c < len / 4; c += kThreads) {
       const int i = lo + 4 * c;
       const bool in = i >= 0 && i < t_in;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                   :: "r"(smem_u32(dst + 4 * c)), "l"(in ? xp + i : xp),
-                      "r"(in ? 16 : 0) : "memory");
+      duc::copy16(dst + 4 * c, in ? xp + i : xp, in);
     }
   } else {
     for (int k = threadIdx.x; k < len; k += kThreads) {
       const int i = lo + k;
       const bool in = i >= 0 && i < t_in;
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                   :: "r"(smem_u32(dst + k)), "l"(in ? xp + i : xp),
-                      "r"(in ? 4 : 0) : "memory");
+      duc::copy4(dst + k, in ? xp + i : xp, in);
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most n (0 or 1) of this thread's cp.async groups are in
-// flight.
-__device__ inline void wait_groups(int n) {
-  if (n)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  duc::commit_copies();
 }
 
 template <int MODE>
@@ -126,7 +107,7 @@ template <int MODE, bool VEC>
 __device__ inline void stage_tile(const Args& a, float* buf, int k,
                                   int last) {
   if (k >= last) {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    duc::commit_copies();
     return;
   }
   const int plane = k / a.tiles;
@@ -177,7 +158,7 @@ banded_fir_kernel(Args a) {
     // tile k + stages - 1 goes into the buffer tile k - 1 was computed in
     stage_tile<MODE, VEC>(a, ring + ((i + stages - 1) % stages) * win,
                           k + stages - 1, last);
-    wait_groups(stages - 1);
+    duc::wait_copies(stages - 1);
     __syncthreads();
     const int plane = k / a.tiles;
     const int v_lo = (k - plane * a.tiles) * kTile;

@@ -49,9 +49,9 @@ _SIGNATURES = {
     "ldpc_minsum_packed": ("ldpc_minsum_packed",
                            [_P, _P] + [_I] * 7 + [_F, _F] + [_I] * 6
                            + [_P, _I] + [_P] * 4),
-    "fir_up2_fused": ("fir_up2_fused", [_P] * 4 + [_I] * 4 + [_P]),
+    "fir_up2_fused": ("fir_up2_fused", [_P] * 3 + [_I] * 9 + [_P]),
     "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
-                              [_P] * 5 + [_I] * 6 + [_P]),
+                              [_P] * 4 + [_I] * 11 + [_P]),
     "duc_from_spec": ("duc_from_spec", [_P] * 8 + [_I] * 9 + [_P]),
 }
 

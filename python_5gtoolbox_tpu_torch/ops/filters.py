@@ -428,24 +428,31 @@ def fir_up2_fused_plain(planes: torch.Tensor, fir_taps: np.ndarray,
 
 
 def fir_up2_fused_planes(planes: torch.Tensor, fir_taps: np.ndarray,
-                         hb_taps: np.ndarray) -> torch.Tensor:
+                         hb_taps: np.ndarray,
+                         plan: FusedPlan | None = None) -> torch.Tensor:
     """FIR `same` + halfband `up2` on real planes in one kernel:
     (P, T) float32 -> (P, 2T).
 
     Replaces python_5gtoolbox_tpu/ops/pallas_filters.py:_fused_kernel
     (entries fir_up2_fused_planes and fir_up2_fused; no pre-padding is
-    needed here). CUDA tensors go through csrc/fir_up2_fused.cu; CPU
-    tensors through fir_up2_fused_plain.
+    needed here). CUDA tensors go through csrc/fir_up2_fused.cu, launched
+    as fused_plan says (plan: a forced one, checked); CPU tensors through
+    fir_up2_fused_plain.
     """
     if planes.device.type == "cpu":
         return fir_up2_fused_plain(planes, fir_taps, hb_taps)
     _check_planes("fir_up2_fused", planes, 2)
     p, t = planes.shape
-    h, g = _fused_taps(fir_taps, hb_taps, planes.device)
+    plan = checked_fused_plan(plan, p, t, len(fir_taps), len(hb_taps),
+                              planes.data_ptr() % 16 == 0)
     z = torch.empty((p, 2 * t), dtype=torch.float32, device=planes.device)
+    if p == 0 or t == 0:
+        return z
+    taps = _device_tap_blob(_taps_key(fir_taps), _taps_key(hb_taps),
+                            plan.geometry.lead, planes.device)
     fn = kernels.library("fir_up2_fused").fir_up2_fused
-    rc = fn(planes.data_ptr(), h.data_ptr(), g.data_ptr(), z.data_ptr(), p,
-            t, len(fir_taps), len(hb_taps), _stream(planes))
+    rc = fn(planes.data_ptr(), taps.data_ptr(), z.data_ptr(), *plan.c_args,
+            _stream(planes))
     kernels.check("fir_up2_fused", rc)
     kernels.LAUNCHES["fir_up2_fused"] += 1
     return z
@@ -473,17 +480,19 @@ def fir_up2_fused_symbols_plain(sym_planes: torch.Tensor, cps,
 
 
 def fir_up2_fused_symbols(sym_planes: torch.Tensor, cps,
-                          fir_taps: np.ndarray,
-                          hb_taps: np.ndarray) -> torch.Tensor:
+                          fir_taps: np.ndarray, hb_taps: np.ndarray,
+                          plan: FusedSymbolsPlan | None = None
+                          ) -> torch.Tensor:
     """CP insertion + FIR + halfband `up2` in one kernel: (P, S, 14, nfft)
     float32 symbol planes -> (P, 2*S*slot_samples) float32.
 
     Replaces python_5gtoolbox_tpu/ops/pallas_filters.py:_fused_sym_kernel
     (entry fir_up2_fused_symbols). CUDA tensors go through
-    csrc/fir_up2_fused_symbols.cu; CPU tensors through
+    csrc/fir_up2_fused_symbols.cu, launched as fused_symbols_plan says
+    (plan: a forced one, checked); CPU tensors through
     fir_up2_fused_symbols_plain.
     """
-    cps = tuple(int(c) for c in cps)
+    cps = tuple(np.asarray(cps).tolist())
     if sym_planes.device.type == "cpu":
         return fir_up2_fused_symbols_plain(sym_planes, cps, fir_taps,
                                            hb_taps)
@@ -492,15 +501,19 @@ def fir_up2_fused_symbols(sym_planes: torch.Tensor, cps,
     if n_sym != 14 or len(cps) != 14 or max(cps) > nfft or min(cps) < 0:
         raise ValueError("fir_up2_fused_symbols: needs 14 symbols per slot "
                          "and 14 CP lengths within [0, nfft]")
-    slot_samples = sum(cps) + 14 * nfft
+    plan = checked_fused_symbols_plan(plan, p, s, nfft, len(fir_taps),
+                                      len(hb_taps), cps,
+                                      sym_planes.data_ptr() % 16 == 0)
     dev = sym_planes.device
-    h, g = _fused_taps(fir_taps, hb_taps, dev)
-    z = torch.empty((p, 2 * s * slot_samples), dtype=torch.float32,
+    z = torch.empty((p, 2 * s * plan.slot_samples), dtype=torch.float32,
                     device=dev)
+    if p == 0:
+        return z
+    taps = _device_tap_blob(_taps_key(fir_taps), _taps_key(hb_taps),
+                            plan.geometry.lead, dev)
     fn = kernels.library("fir_up2_fused_symbols").fir_up2_fused_symbols
-    rc = fn(sym_planes.data_ptr(), _device_ints(cps, dev).data_ptr(),
-            h.data_ptr(), g.data_ptr(), z.data_ptr(), p, s, nfft,
-            slot_samples, len(fir_taps), len(hb_taps), _stream(sym_planes))
+    rc = fn(sym_planes.data_ptr(), taps.data_ptr(), z.data_ptr(),
+            plan.table_ptr, *plan.c_args, _stream(sym_planes))
     kernels.check("fir_up2_fused_symbols", rc)
     kernels.LAUNCHES["fir_up2_fused_symbols"] += 1
     return z
@@ -559,20 +572,29 @@ class DucGeometry:
     nz_tile: int
     hl: int           # timeline samples a symbol's window holds before it
     hr: int           # ... and after it
+    b1: int           # FIR delay, lead zeros included
+    j0: tuple         # halfband branch e holds g[j0_e + 2 k] ...
+    kn: tuple         # ... for k < kn_e, after shift_e zero taps
+    shift: tuple
+    lead: int = 0     # zero taps before the FIR's first
+    per: int = 4      # FIR outputs per thread
 
 
-def duc_geometry(n1: int, n2: int) -> DucGeometry:
-    b1, b2 = n1 - 1 - n1 // 2, n2 // 2 - 1
-    j0 = [(e + b2) & 1 for e in range(2)]
+def duc_geometry(n1: int, n2: int, lead: int = 0,
+                 per: int = 4) -> DucGeometry:
+    b1, b2 = n1 - 1 - n1 // 2 + lead, n2 // 2 - 1
+    j0 = tuple((e + b2) & 1 for e in range(2))
     dd = [(e + b2 - j0[e]) // 2 for e in range(2)]
-    kn = [(n2 - j0[e] + 1) // 2 for e in range(2)]
+    kn = tuple((n2 - j0[e] + 1) // 2 for e in range(2))
     d = max(dd)
-    kp = _round_up4(max(kn[e] + d - dd[e] for e in range(2)))
-    n1p = _round_up4(n1)
+    shift = tuple(d - x for x in dd)
+    kp = _round_up4(max(kn[e] + shift[e] for e in range(2)))
+    n1p = _round_up4(n1 + lead)
     y_back, x_back = kp - d, n1p - b1
     return DucGeometry(n1p=n1p, kp=kp, off=kp, y_back=y_back, x_back=x_back,
-                       nz_tile=2 * ((DUC_TILE_Y - kp) & ~3),
-                       hl=y_back + x_back, hr=b1 + d + 3)
+                       nz_tile=2 * ((DUC_THREADS * per - kp) & ~3),
+                       hl=y_back + x_back, hr=b1 + d + 3, b1=b1, j0=j0,
+                       kn=kn, shift=shift, lead=lead, per=per)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -643,6 +665,13 @@ class DucPlan:
                 range(lo, hi))
 
 
+def _equal_tile(n_out: int, nz_tile: int) -> int:
+    """Outputs per tile when n_out outputs go in equal tiles of at most
+    nz_tile (a multiple of 8), multiples of 8 but the last."""
+    n_tiles = -(-n_out // nz_tile)
+    return (-(-n_out // n_tiles) + 7) // 8 * 8
+
+
 def _tile_table(gm: DucGeometry, nfft: int, cps: tuple) -> tuple:
     """Per symbol of a slot: equal tiles of at most nz_tile outputs,
     multiples of 8 but the last, and the run of tiles that read no halo.
@@ -652,8 +681,7 @@ def _tile_table(gm: DucGeometry, nfft: int, cps: tuple) -> tuple:
     out = []
     for cp in cps:
         n_out = 2 * (cp + nfft)
-        n_tiles = -(-n_out // gm.nz_tile)
-        tile = (-(-n_out // n_tiles) + 7) // 8 * 8
+        tile = _equal_tile(n_out, gm.nz_tile)
         free = [i for i, u0 in enumerate(range(0, n_out, tile))
                 if u0 // 2 >= gm.hl and u0 // 2 + gm.n1p + _round_up4(
                     min(tile, n_out - u0) // 2 + gm.off) <= gm.hl + cp + nfft]
@@ -709,6 +737,307 @@ def checked_duc_plan(plan: DucPlan | None, nant: int, n_slots: int,
                          f"shapes ({plan.nant} antennas, {plan.n_slots} "
                          f"slots, nfft {plan.nfft}, {plan.n1} + {plan.n2} "
                          f"taps)")
+    return plan
+
+
+# Launch choices of csrc/fir_up2_fused.cu and csrc/fir_up2_fused_symbols.cu
+FUSED_PERS = (4, 8)               # FIR outputs per thread of the tile loop
+FUSED_PER8_MIN_TAPS = 128         # 8 outputs per thread from this FIR on
+FUSED_GROUPS = (1, 2)             # symbols per block
+FUSED_GROUP_MIN_SAMPLES = 512     # default: 2 symbols per block below this
+FUSED_MAX_RUNS = 2 * 14 + 4 * 14  # the symbols kernel's run table
+
+
+def fused_lead(n1: int, n2: int) -> int:
+    """Zero taps put before the FIR so that a tile's window starts on a
+    multiple of 4 samples (hl a multiple of 4): each one moves hl by -1
+    mod 4 (csrc/duc_common.cuh:geometry)."""
+    return duc_geometry(n1, n2).hl % 4
+
+
+def _window_floats(gm: DucGeometry, nz: int) -> int:
+    """Window floats the tile loop reads for a tile of nz outputs: n1p +
+    the FIR outputs, rounded to a thread's outputs."""
+    return gm.n1p + -(-(nz // 2 + gm.off) // gm.per) * gm.per
+
+
+def _phys_floats(gm: DucGeometry, win: int) -> int:
+    """Shared floats of a window of win floats (a multiple of 4): for 8
+    outputs per thread two halves of whole float4s, the window's even and
+    odd float4s (duc_common.cuh:split)."""
+    return -(-win // 8) * 8 if gm.per == 8 else win
+
+
+def fused_tap_blob(fir_taps: np.ndarray, hb_taps: np.ndarray,
+                   gm: DucGeometry) -> np.ndarray:
+    """The packed taps the fused kernels copy in (duc_common.cuh:
+    copy_taps): n1p FIR taps with gm.lead zeros first, then the two
+    halfband branches of kp taps each, scaled by sqrt(2)."""
+    h = np.zeros(gm.n1p)
+    h[gm.lead:gm.lead + len(fir_taps)] = fir_taps
+    g = np.asarray(hb_taps, np.float64) * np.sqrt(2)
+    br = np.zeros((2, gm.kp))
+    for e in range(2):
+        br[e, gm.shift[e]:gm.shift[e] + gm.kn[e]] = \
+            g[gm.j0[e]::2][:gm.kn[e]]
+    return np.concatenate([h, br.ravel()]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tap_blob(fir_key: bytes, hb_key: bytes, lead: int,
+                     device: torch.device) -> torch.Tensor:
+    fir, hb = np.frombuffer(fir_key), np.frombuffer(hb_key)
+    return torch.as_tensor(fused_tap_blob(
+        fir, hb, duc_geometry(len(fir), len(hb), lead)), device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How csrc/fir_up2_fused.cu runs (fused_plan).
+
+    The 2T outputs of each plane go in tiles of geometry.nz_tile, one
+    block each, in the flattened (plane, tile) order. Tile k's window holds `win`
+    timeline samples from x_lo = z0/2 - hl on (zeros outside [0, T)),
+    with hl a multiple of 4 (geometry.lead), copied in 16-byte chunks
+    where vec, else sample by sample.
+    """
+    planes: int
+    t: int
+    n1: int
+    n2: int
+    geometry: DucGeometry
+    tiles: int              # tiles per plane
+    blocks: int
+    vec: bool
+    win: int
+    smem_bytes: int
+
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The C entry's arguments after (x, taps, z)."""
+        gm = self.geometry
+        return (self.planes, self.t, self.n1, self.n2, gm.lead, gm.per,
+                int(self.vec), self.win, self.smem_bytes)
+
+    def tile(self, k: int) -> tuple[int, int, int, int]:
+        """(plane, first output, outputs, first window sample) of tile k."""
+        plane, i = divmod(k, self.tiles)
+        z0 = i * self.geometry.nz_tile
+        return (plane, z0, min(self.geometry.nz_tile, 2 * self.t - z0),
+                z0 // 2 - self.geometry.hl)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(planes: int, t: int, n1: int, n2: int, aligned: bool = True,
+               per: int | None = None) -> FusedPlan:
+    """The launch of csrc/fir_up2_fused.cu over (planes, t) samples with n1
+    FIR and n2 halfband taps. aligned: the input's base address is a
+    multiple of 16 bytes (the wrapper checks its tensor's).
+
+    One tile and one window per block; 8 outputs per thread for FIRs of
+    FUSED_PER8_MIN_TAPS or more whose tiles give at least one block per
+    SM, else 4 (more, smaller blocks). That is the tuner's choice
+    (sim/time_filter_kernels.py --tune, PERF.md section 6): at 4x307200
+    4 outputs per thread won at 71 and 87 taps, 8 at 143, 153 and 287
+    (and from 4x1228800 on); 4 won at 2x15360. Blocks of several tiles,
+    with or without a ring of two windows, were slower everywhere. per: a
+    forced value (the tuner's and the card tests'); ValueError outside
+    FUSED_PERS or where the shared memory does not fit."""
+    if per is None:
+        wide = duc_geometry(n1, n2, 0, 8).nz_tile
+        per = 8 if (n1 >= FUSED_PER8_MIN_TAPS and planes * -(-2 * t // wide)
+                    >= kernels.H100_SMS) else 4
+    if not (per in FUSED_PERS and planes >= 0 and t >= 0 and n1 >= 1
+            and n2 >= 3):
+        raise ValueError(f"fir_up2_fused: {per} outputs per thread out of "
+                         f"range")
+    gm = duc_geometry(n1, n2, fused_lead(n1, n2), per)
+    win = _window_floats(gm, gm.nz_tile)
+    smem = 4 * (gm.n1p + 2 * gm.kp + DUC_THREADS * per
+                + _phys_floats(gm, win))
+    if gm.nz_tile < 8 or smem > kernels.SMEM_OPTIN_BYTES:
+        raise ValueError(f"fir_up2_fused: {n1} + {n2} taps do not fit")
+    tiles = -(-2 * t // gm.nz_tile)
+    return FusedPlan(planes=planes, t=t, n1=n1, n2=n2, geometry=gm,
+                     tiles=tiles, blocks=planes * tiles,
+                     vec=bool(aligned and t % 4 == 0), win=win,
+                     smem_bytes=smem)
+
+
+def checked_fused_plan(plan: FusedPlan | None, planes: int, t: int, n1: int,
+                       n2: int, aligned: bool) -> FusedPlan:
+    """fused_plan's choice where plan is None; else plan itself, once
+    fused_plan, forced to its choices, gives it back for these shapes and
+    the input's alignment allows its staging (ValueError where not)."""
+    if plan is None:
+        return fused_plan(planes, t, n1, n2, aligned)
+    if plan != fused_plan(planes, t, n1, n2, plan.vec, plan.geometry.per) \
+            or (plan.vec and not aligned):
+        raise ValueError(f"fir_up2_fused: the plan was made for other "
+                         f"shapes ({plan.planes}x{plan.t}, {plan.n1} + "
+                         f"{plan.n2} taps) or an aligned input")
+    return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedSymbolsPlan:
+    """How csrc/fir_up2_fused_symbols.cu runs (fused_symbols_plan).
+
+    Block (j, p) serves group j % (14 / group) of slot s = j // (14 /
+    group), `group` consecutive symbols of one slot, on plane p, with 4
+    FIR outputs per thread. Its window holds the group's CP timeline with
+    hl samples before it and hr after (zeros beyond the waveform), then
+    zeros up to `win`, made of runs[j'] (j' the group in its slot):
+    (window sample, symbol relative to the group's first, sample of that
+    symbol's IFFT row, length, flags; flag 1: 16-byte copies, 2: zeros).
+    The group's 2 len outputs go in equal tiles of tiles[j']
+    (duc_from_spec's rule, _equal_tile).
+    """
+    planes: int
+    n_slots: int
+    nfft: int
+    n1: int
+    n2: int
+    cps: tuple
+    geometry: DucGeometry
+    group: int
+    starts: tuple           # first sample of each group in its slot, and
+                            # slot_samples
+    tiles: tuple
+    runs: tuple
+    win: int
+    smem_bytes: int
+
+    @property
+    def groups(self) -> int:
+        return 14 // self.group
+
+    @property
+    def slot_samples(self) -> int:
+        return self.starts[-1]
+
+    @property
+    def blocks(self) -> int:
+        return self.n_slots * self.groups * self.planes
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        """The run table the C entry copies into the kernel's parameters:
+        run_lo (groups + 1), starts (groups + 1), tiles (groups), runs."""
+        run_lo = np.cumsum([0] + [len(r) for r in self.runs])
+        flat = [x for rs in self.runs for run in rs for x in run]
+        return np.ascontiguousarray(np.concatenate(
+            [run_lo, self.starts, self.tiles, flat]), np.int32)
+
+    @functools.cached_property
+    def table_ptr(self) -> int:
+        """Host address of table, for the C entry."""
+        return self.table.ctypes.data
+
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The C entry's arguments after (sym, taps, z, table)."""
+        gm = self.geometry
+        return (self.planes, self.n_slots, self.nfft, self.slot_samples,
+                self.n1, self.n2, self.geometry.lead, self.group,
+                sum(len(r) for r in self.runs), self.win, self.smem_bytes)
+
+
+def _group_runs(gm: DucGeometry, nfft: int, cps: tuple, m0: int, g: int,
+                win: int, aligned: bool) -> tuple:
+    """The runs of the window of symbols m0 .. m0 + g - 1 of a slot."""
+    runs = [(0, -1, nfft - gm.hl, gm.hl)]             # symbol m0 - 1's tail
+    at = gm.hl
+    for i in range(g):
+        cp = cps[m0 + i]
+        if cp:
+            runs.append((at, i, nfft - cp, cp))
+        runs.append((at + cp, i, 0, nfft))
+        at += cp + nfft
+    cp = cps[(m0 + g) % 14]                            # the next symbol's
+    runs.append((at, g, nfft - cp, min(gm.hr, cp)))   # CP and head
+    if gm.hr > cp:
+        runs.append((at + cp, g, 0, gm.hr - cp))
+    out = [(dst, row, src, n,
+            int(aligned and nfft % 4 == 0 and dst % 4 == 0 and src % 4 == 0
+                and n % 4 == 0)) for dst, row, src, n in runs if n]
+    end = at + gm.hr
+    if win > end:
+        out.append((end, 0, 0, win - end, 2))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def fused_symbols_plan(planes: int, n_slots: int, nfft: int, n1: int,
+                       n2: int, cps: tuple, aligned: bool = True,
+                       group: int | None = None) -> FusedSymbolsPlan:
+    """The launch of csrc/fir_up2_fused_symbols.cu over (planes, n_slots,
+    14, nfft) symbols with n1 FIR and n2 halfband taps. aligned: the
+    input's base address is a multiple of 16 bytes.
+
+    One symbol per block, or two where a symbol holds fewer than
+    FUSED_GROUP_MIN_SAMPLES timeline samples (nfft 256) and the grid keeps
+    two blocks per SM. The tuner's choice (sim/time_filter_kernels.py
+    --tune, PERF.md section 6): at 20 slots two symbols per block won at
+    nfft 256 and tied at nfft 512, one won at 1 slot. group (FUSED_GROUPS):
+    a forced value; ValueError where it or the shapes do not fit (a halo
+    longer than a symbol)."""
+    if group is None:
+        two = (nfft + max(cps) < FUSED_GROUP_MIN_SAMPLES
+               and n_slots * 7 * planes >= 2 * kernels.H100_SMS)
+        group = 2 if two else 1
+    if group not in FUSED_GROUPS or planes < 0 or n_slots < 1 \
+            or len(cps) != 14 or min(cps) < 0 or max(cps) > nfft \
+            or n1 < 1 or n2 < 3:
+        raise ValueError(f"fir_up2_fused_symbols: {group} symbols per "
+                         f"block or the shapes out of range")
+    gm = duc_geometry(n1, n2, fused_lead(n1, n2))
+    if gm.nz_tile < 8 or gm.hl > nfft or gm.hr > min(cps) + nfft:
+        raise ValueError(f"fir_up2_fused_symbols: {n1} + {n2} taps reach "
+                         f"past the neighbouring symbols")
+    starts = tuple(int(x) for x in np.cumsum(
+        [0] + [sum(cps[m] + nfft for m in range(j, j + group))
+               for j in range(0, 14, group)]))
+    tiles, win = [], 0
+    for j in range(14 // group):
+        n_out = 2 * (starts[j + 1] - starts[j])
+        tile = _equal_tile(n_out, gm.nz_tile)
+        tiles.append(tile)
+        win = max([win, gm.hl + n_out // 2 + gm.hr] + [
+            u0 // 2 + _window_floats(gm, min(tile, n_out - u0))
+            for u0 in range(0, n_out, tile)])
+    win = _round_up4(win)
+    runs = tuple(_group_runs(gm, nfft, cps, m0, group, win, aligned)
+                 for m0 in range(0, 14, group))
+    smem = 4 * (gm.n1p + 2 * gm.kp + DUC_TILE_Y + win)
+    if smem > kernels.SMEM_OPTIN_BYTES:
+        raise ValueError(f"fir_up2_fused_symbols: {smem} bytes of shared "
+                         f"memory per block do not fit")
+    return FusedSymbolsPlan(planes=planes, n_slots=n_slots, nfft=nfft, n1=n1,
+                            n2=n2, cps=cps, geometry=gm, group=group,
+                            starts=starts, tiles=tuple(tiles), runs=runs,
+                            win=win, smem_bytes=smem)
+
+
+def checked_fused_symbols_plan(plan: FusedSymbolsPlan | None, planes: int,
+                               n_slots: int, nfft: int, n1: int, n2: int,
+                               cps: tuple, aligned: bool
+                               ) -> FusedSymbolsPlan:
+    """fused_symbols_plan's choice where plan is None; else plan itself,
+    once fused_symbols_plan, forced to its choices, gives it back for these
+    shapes and the input's alignment (ValueError where it does not)."""
+    if plan is None:
+        return fused_symbols_plan(planes, n_slots, nfft, n1, n2, cps,
+                                  aligned)
+    vec = any(r[4] & 1 for rs in plan.runs for r in rs)
+    if (vec and not aligned) or plan not in (
+            fused_symbols_plan(planes, n_slots, nfft, n1, n2, cps, a,
+                               plan.group)
+            for a in (True, False)):
+        raise ValueError(f"fir_up2_fused_symbols: the plan was made for "
+                         f"other shapes ({plan.planes} planes, "
+                         f"{plan.n_slots} slots, nfft {plan.nfft}, "
+                         f"{plan.n1} + {plan.n2} taps) or an aligned input")
     return plan
 
 

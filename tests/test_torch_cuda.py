@@ -136,6 +136,89 @@ def test_fir_up2_fused_symbols_kernel_matches_plain(cuda_device, scs, bw,
     assert _max_err(got, ref) < 1.2e-4
 
 
+@pytest.mark.parametrize("per", [4, 8])
+@pytest.mark.parametrize("n1,aligned", [(71, True), (287, True),
+                                        (27, False)])
+def test_fir_up2_fused_forced_plans(cuda_device, per, n1, aligned):
+    """Every forced choice of fused_plan: 4 or 8 outputs per thread,
+    16-byte and 4-byte staging (3 planes of several tiles each)."""
+    fir, hb = _fir_taps(n1), filters.halfband_coeff()
+    gen = torch.Generator(device=cuda_device).manual_seed(n1 + per)
+    x = torch.randn((3, 4096), generator=gen, device=cuda_device)
+    plan = filters.fused_plan(3, 4096, n1, 55, aligned, per)
+    assert plan.vec == aligned
+    before = kernels.LAUNCHES["fir_up2_fused"]
+    got = filters.fir_up2_fused_planes(x, fir, hb, plan=plan)
+    ref = filters.fir_up2_fused_plain(x, fir, hb)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fir_up2_fused"] == before + 1
+    assert _max_err(got, ref) < 1.2e-4
+    with pytest.raises(ValueError):
+        filters.fir_up2_fused_planes(x[:2].contiguous(), fir, hb, plan=plan)
+    assert kernels.LAUNCHES["fir_up2_fused"] == before + 1
+
+
+@pytest.mark.parametrize("t,offset", [(4100, 1), (4103, 0), (4103, 3),
+                                      (1228800, 2)])
+@pytest.mark.parametrize("n1", [45, 71, 287])
+def test_fir_up2_fused_unaligned_and_ragged(cuda_device, t, offset, n1):
+    """A sliced view 4-12 bytes past a 16-byte boundary (the plan must take
+    4-byte staging) and ragged rows; a forced 16-byte plan is refused on
+    the unaligned view."""
+    fir, hb = _fir_taps(n1), filters.halfband_coeff()
+    gen = torch.Generator(device=cuda_device).manual_seed(t + offset)
+    flat = torch.randn(2 * t + offset, generator=gen, device=cuda_device)
+    x = flat[offset:].view(2, t)
+    got = filters.fir_up2_fused_planes(x, fir, hb)
+    ref = filters.fir_up2_fused_plain(x, fir, hb)
+    assert _max_err(got, ref) < 1.2e-4
+    if offset and t % 4 == 0:
+        with pytest.raises(ValueError):
+            filters.fir_up2_fused_planes(
+                x, fir, hb, plan=filters.fused_plan(2, t, n1, 55))
+
+
+def test_fir_up2_fused_full_width(cuda_device):
+    """The BW 100 Dm waveform's only filter stage: 2 antennas x 20 slots at
+    122.88 Msps as 4 planes of 1228800, 287 + 55 taps."""
+    fir, hb = filters.fir_coeff(30, 100), filters.halfband_coeff()
+    gen = torch.Generator(device=cuda_device).manual_seed(100)
+    x = torch.randn((4, 1228800), generator=gen, device=cuda_device)
+    got = filters.fir_up2_fused_planes(x, fir, hb)
+    assert _max_err(got, filters.fir_up2_fused_plain(x, fir, hb)) < 1.2e-4
+
+
+@pytest.mark.parametrize("scs,bw", [(15, 5), (30, 10), (30, 5)])
+@pytest.mark.parametrize("n_slots", [1, 20])
+def test_fir_up2_fused_symbols_every_carrier(cuda_device, scs, bw, n_slots):
+    """The three carriers below nfft 1024 at 1 and 20 slots, the default
+    plan (at scs 30 / BW 5 the CPs of 18 and 22 samples take 4-byte
+    runs) and every forced group size."""
+    fd = _grid(cuda_device, scs, bw, 2, n_slots)
+    symp = ofdm.tx_low_phy_sym_planes(fd, scs, bw, 3_500_000_000)
+    nfft = symp.shape[-1]
+    cps = tuple(int(c) for c in ofdm._cp_table(scs, nfft))
+    fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
+    ref = filters.fir_up2_fused_symbols_plain(symp, cps, fir, hb)
+    plans = [None] + [filters.fused_symbols_plan(4, n_slots, nfft, len(fir),
+                                                 55, cps, True, group)
+                      for group in filters.FUSED_GROUPS]
+
+    for plan in plans:
+        before = kernels.LAUNCHES["fir_up2_fused_symbols"]
+        got = filters.fir_up2_fused_symbols(symp, cps, fir, hb, plan=plan)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fir_up2_fused_symbols"] == before + 1
+        assert _max_err(got, ref) < 1.2e-4
+    # a sliced, unaligned input takes 4-byte runs only
+    flat = torch.cat([symp.new_zeros(1), symp.reshape(-1)])
+    view = flat[1:].view(symp.shape)
+    assert _max_err(filters.fir_up2_fused_symbols(view, cps, fir, hb),
+                    ref) < 1.2e-4
+    with pytest.raises(ValueError):
+        filters.fir_up2_fused_symbols(view, cps, fir, hb, plan=plans[1])
+
+
 @pytest.mark.parametrize("scs,bw,nant,n_slots", [(30, 20, 2, 3),
                                                  (30, 20, 1, 1),
                                                  (15, 20, 1, 2),
