@@ -18,6 +18,13 @@ then drives the port's paths through its entry points:
     BW 10, scs 30 / BW 5);
   * the sweep on a small allocation (MCS 0, 12 RBs: Zc 80), whose decode
     goes through the small-lifting LDPC kernel;
+  * the uplink: the transform-precoded PUSCH sweep at its bench
+    configuration (bench.py:bench_link_level_pusch_tp: BW 20, 1x2, 48 RBs,
+    DFT-s-OFDM; banded FIR on 2 and 4 planes, LDPC at BG2 / Zc 288), the
+    same sweep in CP-OFDM, each with a clean 30 dB point decoded exactly,
+    and gen_ul_waveform at the default UL configuration (BW 40, 100 RBs,
+    256QAM, 20 slots, 122.88 Msps) through both of its branches (the
+    spectrum DUC kernel, and OFDM then the flat fused FIR + halfband);
   * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
     400 codewords per SNR point, six decoder settings) and the
     bit-flipping study's decode, and the decoder bench's shape
@@ -69,11 +76,16 @@ from python_5gtoolbox_tpu_torch.ops import filters, ofdm  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim  # noqa: E402
+from python_5gtoolbox_tpu_torch.utils.config import (  # noqa: E402
+    get_default_config, merged)
 from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (  # noqa: E402
     call_ms, device_ms, never_converging_llrs)
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf  # noqa: E402
+from python_5gtoolbox_tpu_torch.waveform import ul as ul_wf  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -170,7 +182,11 @@ def phase_fir(rng) -> dict:
              ((8, 1228800), hb, "DDC halfband 4x -> 2x", ("down2",)),
              ((8, 614400), hb, "DDC halfband 2x -> 1x", ("down2",)),
              ((3, 307201), filters.fir_coeff(30, 20),
-              "ragged, unaligned base", all_modes)]
+              "ragged, unaligned base", all_modes),
+             # the UL sweep's TX FIR (1 antenna; its RX, 2 antennas, is
+             # the 4x307200 shape above)
+             ((2, 307200), filters.fir_coeff(30, 20), "UL TX FIR, BW 20",
+              ("same",))]
     for shape, taps, label, modes in cases:
         p, t = shape
         flat = torch.as_tensor(rng.standard_normal(p * t + 1,
@@ -309,10 +325,12 @@ def phase_ldpc(rng) -> dict:
     ldpc_dec._ldpc_decode_plain(never_converging_llrs(rng, 352, 2, 20, DEV),
                                 352, 2, 2, 0.8, 0.3)
     # the sweep's code (BG2, Zc 352, 20 codewords) where most codewords
-    # converge, a large batch, BG1 at the largest lifting, and a point
-    # where none converges (all 16 iterations and the final rule)
+    # converge, a large batch, BG1 at the largest lifting, a point where
+    # none converges (all 16 iterations and the final rule), and the UL
+    # sweep's code (TBS 2600: BG2, Zc 288, 20 codewords)
     for zc, bgn, batch, snr in [(352, 2, 20, -2.0), (352, 2, 256, -2.0),
-                                (384, 1, 20, 0.0), (352, 2, 20, -6.0)]:
+                                (384, 1, 20, 0.0), (352, 2, 20, -6.0),
+                                (288, 2, 20, -2.0)]:
         llr = _noisy_codewords(rng, zc, bgn, batch, snr)
         row, _ = _ldpc_case("ldpc_minsum_flooded", ldpc_dec.ldpc_minsum, llr,
                             zc, bgn, 16, snr_db=snr)
@@ -576,6 +594,12 @@ def phase_duc_kernels(rng) -> dict:
         # size and at the largest (non-portable) one
         _case_spec(_random_grid(rng, 30, 20, 2, 3), 30, 20),
         _case_spec(_random_grid(rng, 30, 20, 2, 3), 30, 20, cluster=16),
+        # gen_ul_waveform at the default UL configuration (BW 40, nfft
+        # 2048, 143 taps, 1 antenna, 20 slots): the td branch's stage, the
+        # same at twice the rows, and the fused branch's spectrum DUC
+        _case_fused(rng, (2, 614400), 30, 40, "UL waveform, BW 40"),
+        _case_fused(rng, (2, 1228800), 30, 40, "BW 40, 40 slots"),
+        _case_spec(_random_grid(rng, 30, 40, 1, 20), 30, 40),
     ]
     main, worst = {}, {}
     for case in cases:
@@ -648,15 +672,21 @@ def phase_duc(main: dict) -> int:
     return launches["duc_from_spec"]
 
 
+DL = (sim.run_pdsch_throughput, sim.pdsch_before_ceq_processing)
+UL = (usim.run_pusch_throughput, usim.pusch_before_ceq_processing)
+
+
 def _sweep(phase: str, rate_mhz, expected,
            config=sim.bench_link_level_config,
-           snrs=(0.0, 1.0, 2.0, 3.0, 4.0, 5.0)) -> dict:
-    """A link-level sweep (the bench configuration unless config says
-    otherwise; 6 SNR points x 20 slots, warm) at the carrier rate or at
-    rate_mhz, then a clean 30 dB point that must decode exactly. Returns
-    the timed sweep's launch counts. expected: the kernels that must have
-    been launched, or a dict of exact counts."""
-    carrier, pdsch, chan, ce, ldpc = config()
+           snrs=(0.0, 1.0, 2.0, 3.0, 4.0, 5.0), link=DL) -> dict:
+    """A link-level sweep (the PDSCH bench configuration unless config and
+    link say otherwise; 6 SNR points x 20 slots, warm) at the carrier rate
+    or at rate_mhz, then a clean 30 dB point that must decode exactly.
+    Returns the timed sweep's launch counts. expected: the kernels that
+    must have been launched, or a dict of exact counts. link: the sweep's
+    (run, before_ceq_processing) pair, DL (PDSCH) or UL (PUSCH)."""
+    run, before = link
+    carrier, ch_cfg, chan, ce, ldpc = config()
     if rate_mhz is not None:
         carrier["samplerate_in_mhz"] = rate_mhz
     snrs = list(snrs)
@@ -664,12 +694,12 @@ def _sweep(phase: str, rate_mhz, expected,
     kw = dict(ceq_algo_list=["MMSE-IRC"], n_slots=n_slots, ce_config=ce,
               ldpc_config=ldpc, seed=3, device=DEV)
     t0 = time.perf_counter()
-    sim.run_pdsch_throughput(carrier, pdsch, chan, snrs, **kw)   # warm
+    run(carrier, ch_cfg, chan, snrs, **kw)                       # warm
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = sim.run_pdsch_throughput(carrier, pdsch, chan, snrs, **kw)
+    res = run(carrier, ch_cfg, chan, snrs, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -685,19 +715,19 @@ def _sweep(phase: str, rate_mhz, expected,
          launches=launches)
 
     # a clean point decodes every block, and decodes it exactly
-    nr_pdsch0 = Pdsch(pdsch, carrier, device=DEV)
     trblks = np.random.default_rng(30).integers(
-        0, 2, (n_slots, nr_pdsch0.tbsize), dtype=np.int8)
-    nr_pdsch, slots, rx_fd = sim.pdsch_before_ceq_processing(
-        carrier, pdsch, chan, -30.0, n_slots, seed=30, device=DEV,
+        0, 2, (n_slots, res["tbs_bits"]), dtype=np.int8)
+    obj, slots, rx_fd = before(
+        carrier, ch_cfg, chan, -30.0, n_slots, seed=30, device=DEV,
         state=state_from_numpy(trblks=trblks, device=DEV))
+    nr = carrier["Nr"]
     n_sc = rx_fd.shape[1] // (n_slots * 14)
-    if tuple(rx_fd.shape) != (4, n_slots * 14 * n_sc) \
+    if tuple(rx_fd.shape) != (nr, n_slots * 14 * n_sc) \
             or not torch.isfinite(torch.view_as_real(rx_fd)).all():
         raise AssertionError(f"rx grid has shape {tuple(rx_fd.shape)} or "
                              f"non-finite values")
-    stack = rx_fd.reshape(4, n_slots, -1).transpose(0, 1)
-    ok, tbblk = nr_pdsch.rx_process_batch(
+    stack = rx_fd.reshape(nr, n_slots, -1).transpose(0, 1)
+    ok, tbblk = obj.rx_process_batch(
         stack, slots, {"algo": "MMSE-IRC"}, ldpc,
         sim._ce_config(ce, chan, carrier["scs"]))
     n_pass = int(ok.sum())
@@ -727,6 +757,91 @@ def phase_sweep_small_alloc() -> dict:
                        banded_fir=12),
                   config=sim.small_alloc_link_level_config,
                   snrs=(-12.0, -11.0, -10.0, -9.0, -8.0, -6.0))
+
+
+def phase_sweep_pusch_tp() -> dict:
+    """The transform-precoded UL sweep at its bench configuration
+    (bench.py:bench_link_level_pusch_tp: 1 TX x 2 RX, 48 RBs, MCS 2 of
+    MCStable61411, TBS 2600 = one BG2 code block at Zc 288): per SNR point
+    one TX FIR on 2 planes, one RX FIR on 4, one decode of 20 codewords."""
+    return _sweep("sweep_pusch_tp", None,
+                  dict(banded_fir=12, ldpc_minsum_flooded=6,
+                       ldpc_minsum_packed=0),
+                  config=usim.bench_link_level_pusch_tp_config, link=UL)
+
+
+def _pusch_cp_config():
+    carrier, pusch, chan, ce, ldpc = usim.bench_link_level_pusch_tp_config()
+    pusch["nTransPrecode"] = 0
+    return carrier, pusch, chan, ce, ldpc
+
+
+def phase_sweep_pusch_cp() -> dict:
+    """The same sweep in CP-OFDM, at 2 SNR points."""
+    return _sweep("sweep_pusch_cp", None,
+                  dict(banded_fir=4, ldpc_minsum_flooded=2,
+                       ldpc_minsum_packed=0),
+                  config=_pusch_cp_config, snrs=(0.0, 5.0), link=UL)
+
+
+def phase_waveform_ul() -> dict:
+    """gen_ul_waveform at the default UL configuration (BW 40 / scs 30,
+    nfft 2048, PUSCH on 100 RBs, 256QAM MCS 20, 1 antenna port, 20 slots,
+    122.88 Msps) through both branches, each against the plain versions:
+    return_device=False (OFDM, slot phase, then fir_up2_fused with 143 + 55
+    taps on 2x614400 planes) and return_device=True (duc_from_spec from
+    the spectrum); the two branches' waveforms agree. Returns the launches
+    of the two kernels."""
+    carrier = get_default_config("ul_carrier")
+    pusch = merged(get_default_config("pusch"),
+                   dict(nNrOfAntennaPorts=1, nPMI=0))
+    wf = get_default_config("ul_waveform")
+    scs, bw = carrier["scs"], carrier["BW"]
+    fc = int(carrier["carrier_frequency_in_mhz"] * 1e6)
+    rate = wf["samplerate_in_mhz"] * 1e6
+    fir, hb = filters.fir_coeff(scs, bw), filters.halfband_coeff()
+    out, uls, rows = {}, {}, []
+    for return_device, kernel in ((False, "fir_up2_fused"),
+                                  (True, "duc_from_spec")):
+        def run():
+            ch = NrPUSCH(carrier, pusch, rng=np.random.default_rng(21),
+                         device=DEV)
+            return ul_wf.gen_ul_waveform(wf, carrier, [ch],
+                                         return_device=return_device)
+        kernels.reset_launches()
+        fd, td, ul = run()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches[kernel] != 1 or sum(launches.values()) != 1:
+            raise AssertionError(f"gen_ul_waveform(return_device="
+                                 f"{return_device}) launches {launches}")
+        out[kernel] = launches[kernel]
+        if return_device:
+            grid = fd.reshape(1, wf["numofslots"], 14, -1)
+            ref = _plain_duc(grid, scs, bw, fc, rate)
+        else:
+            y = filters.fir_up2_fused_plain(torch.cat([td.real, td.imag]),
+                                            fir, hb)
+            ref = torch.complex(y[:1], y[1:])
+        err = _check("gen_ul_waveform", f"return_device={return_device}",
+                     ul, ref)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rows.append(dict(return_device=return_device, kernel=kernel,
+                         launches=launches[kernel], ul_shape=list(ul.shape),
+                         td_shape=None if td is None else list(td.shape),
+                         max_abs_err=err,
+                         warm_ms=(time.perf_counter() - t0) * 1e3))
+        uls[return_device] = ul
+        del ref
+    err = _check("gen_ul_waveform", "branch against branch", uls[True],
+                 uls[False])
+    emit("waveform_ul", n_slots=wf["numofslots"], bw=bw, rbs=pusch[
+        "ResAlloType1"]["RBSize"], tbs_bits=NrPUSCH(
+            carrier, pusch, device=DEV).tbsize, rate_mhz=rate / 1e6,
+         branches=rows, max_abs_err_between_branches=err)
+    return out
 
 
 def _z_score(p1, p2, n):
@@ -937,6 +1052,10 @@ def main() -> None:
         phase_sweep_small_alloc()["ldpc_minsum_packed"]
     phase_ldpc_study()
     phase_ldpc_bf()
+    # the uplink: per phase, the launches of each kernel in its run
+    ul_launches = dict(sweep_pusch_tp=phase_sweep_pusch_tp(),
+                       sweep_pusch_cp=phase_sweep_pusch_cp(),
+                       waveform_ul=phase_waveform_ul())
     for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
                  "ldpc_minsum_layered_fast"):
         rows[name] = bench_rows[name]
@@ -949,7 +1068,8 @@ def main() -> None:
     # in their gen_dl_waveform calls (summed: 2 Dm waveforms, 3 carriers
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
-    # decoder bench through ldpc_decode
+    # decoder bench through ldpc_decode; ul_launches: the uplink phases
+    # that launched the kernel, with their counts
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
@@ -972,7 +1092,10 @@ def main() -> None:
                           max_abs_err=row["max_abs_err"],
                           ms=row["kernel_ms"], plain_ms=row["plain_ms"],
                           bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                          library_ms=row["library_ms"]))
+                          library_ms=row["library_ms"],
+                          ul_launches={ph: n[name] for ph, n in
+                                       ul_launches.items()
+                                       if n.get(name, 0) > 0}))
     emit("summary", **SUMMARY)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -8,7 +8,7 @@ from python_5gtoolbox_tpu_torch.ops.ldpc.ratematch import (  # noqa: F401
     get_er_ldpc, get_k0, ratematch_indices, ldpc_ratematch, ldpc_raterecover,
 )
 from python_5gtoolbox_tpu_torch.ops.ldpc.segment import (  # noqa: F401
-    cb_segment, cb_segment_np,
+    cb_segment, cb_segment_np, er_groups, sch_crc_bg, sch_plan,
 )
 from python_5gtoolbox_tpu_torch.ops.ldpc.decode import (  # noqa: F401
     ldpc_decode, ldpc_decode_bf, ldpc_minsum, ldpc_minsum_flooded,

@@ -23,6 +23,10 @@ QM_TABLE = {
     "1024qam": 10,
 }
 
+# modulation order -> the name modulate takes (Qm 1: pi/2-BPSK, the UL's)
+QM_NAME = {1: "pi/2-bpsk", 2: "qpsk", 4: "16qam", 6: "64qam", 8: "256qam",
+           10: "1024qam"}
+
 _SCALE = {
     1: 1.0 / math.sqrt(2.0),
     2: 1.0 / math.sqrt(2.0),

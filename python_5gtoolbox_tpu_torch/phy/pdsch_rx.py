@@ -1,10 +1,14 @@
-"""PDSCH slot-batched receive path.
+"""PDSCH slot-batched receive path, shared with the PUSCH.
 
 Port of the batched RX of python_5gtoolbox_tpu/phy/pdsch_rx.py
 (_batch_rx_fn, rx_batch_prepare, rx_process_batch): one call runs LS
 estimation, DFT CE, TO/FO compensation, equalization, demod,
 descrambling, rate recovery, LDPC decode and the TB CRC for a stack of
-slots (rx/batch_core.py). The per-slot RX_process is not ported yet.
+slots (rx/batch_core.py). The UL-SCH takes the same path
+(phy/pusch_rx.py) with Ncb = N (tbs_lbrm None) and, for DFT-s-OFDM, the
+de-precode branch of the core; the channel object gives the DMRS
+sequence (dmrs_seq) and the scrambling c_init (scramble_cinit). The
+per-slot RX_process is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,8 +18,7 @@ import numpy as np
 import torch
 
 from python_5gtoolbox_tpu_torch.ops.prbs import gen_prbs_np
-from python_5gtoolbox_tpu_torch.phy.pdsch import (get_dmrs_symlist,
-                                                  pdsch_dmrs_seq)
+from python_5gtoolbox_tpu_torch.phy.pdsch import get_dmrs_symlist
 
 
 @functools.lru_cache(maxsize=None)
@@ -25,7 +28,7 @@ def _batch_rx_fn(key: tuple):
 
     (rb_start, rb_size, ssi, nsym, ports, nl, ncdm, add_pos, scs, n_sc,
      nr, qm, tbsize, rate1024, tbs_lbrm, rv, algo, ldpc_key, ce_key,
-     scaling_db, harq) = key
+     scaling_db, harq, tp) = key
     symlist = get_dmrs_symlist(ssi + nsym, add_pos)
     fn, G = build_batch_rx_core(
         rb_start=rb_start, rb_size=rb_size, ssi=ssi, nsym=nsym,
@@ -34,12 +37,14 @@ def _batch_rx_fn(key: tuple):
         algo=algo, ldpc_cfg=dict(zip(("L", "algo", "alpha", "beta"),
                                      ldpc_key)),
         ce_config=dict(ce_key), symlist=symlist,
-        scaling=1.0 if ncdm == 1 else 10 ** (scaling_db / 20), harq=harq)
+        scaling=1.0 if ncdm == 1 else 10 ** (scaling_db / 20), harq=harq,
+        transform_precode=tp)
     return fn, G, symlist
 
 
 class PdschRxMixin:
-    """RX methods mixed into Pdsch (phy/pdsch.py)."""
+    """RX methods mixed into Pdsch (phy/pdsch.py) and, through
+    phy/pusch_rx.py, into NrPUSCH."""
 
     def rx_process_batch(self, rx_fd_slots, slot_list, CEQ_config,
                          LDPC_decoder_config, ce_config, fetch=True,
@@ -86,7 +91,10 @@ class PdschRxMixin:
                          harq=False):
         """Build the batched-RX core and its per-slot inputs without
         running it: nr RX antennas -> (fn, dmrs (S, nsym, rb*6)
-        complex64, scr_sign (G,) float32), host arrays."""
+        complex64, scr_sign (G,) float32), host arrays. The DMRS of
+        every slot and symbol and the scrambling sign come from
+        self.dmrs_seq and self.scramble_cinit; self.tbs_lbrm None means
+        Ncb = N; cfg nTransPrecode 1 takes the de-precode branch."""
         cfg = self.cfg
         rv_eff = cfg["rv"][0] if rv is None else int(rv)
         ce_key = tuple(sorted(
@@ -106,12 +114,11 @@ class PdschRxMixin:
                cfg["DMRS"]["DMRSAddPos"], self.carrier["scs"],
                12 * self.prb_size, nr, self.qm, self.tbsize, self.rate1024,
                self.tbs_lbrm, rv_eff, CEQ_config["algo"], ldpc_key, ce_key,
-               -3, harq)
+               -3, harq, bool(cfg.get("nTransPrecode", 0)))
         fn, G, symlist = _batch_rx_fn(key)
         dmrs = np.stack([
-            np.stack([pdsch_dmrs_seq(cfg["DMRS"], rb_start, rb_size,
-                                     int(slot), sym) for sym in symlist])
+            np.stack([self.dmrs_seq(int(slot), sym) for sym in symlist])
             for slot in slot_list]).astype(np.complex64)
-        cinit = cfg["rnti"] * (2 ** 15) + cfg["nID"]
+        cinit = self.scramble_cinit()
         scr_sign = (1.0 - 2.0 * gen_prbs_np(cinit, G)).astype(np.float32)
         return fn, dmrs, scr_sign

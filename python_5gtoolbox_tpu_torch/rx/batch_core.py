@@ -1,12 +1,15 @@
-"""Slot-batched RX core for PDSCH (DL-SCH).
+"""Slot-batched RX core for PDSCH (DL-SCH) and PUSCH (UL-SCH).
 
-Port of python_5gtoolbox_tpu/rx/batch_core.py without UCI and transform
-precoding: LS estimation on DMRS REs -> DFT CE (rx/ce_batch.py) -> TO/FO
-data compensation -> linear equalization + max-log demod -> descramble
+Port of python_5gtoolbox_tpu/rx/batch_core.py without UCI: LS
+estimation on DMRS REs -> DFT CE (rx/ce_batch.py) -> TO/FO data
+compensation -> linear equalization + max-log demod (for DFT-s-OFDM:
+equalization, the IDFT de-precode per symbol, then demod) -> descramble
 -> Er-grouped LDPC rate recovery (+ optional HARQ soft combine) -> LDPC
-decode (the CUDA min-sum kernel on the card) -> TB CRC. The plan-time
-part runs once in build_batch_rx_core; the returned core() is plain
-tensor code batched over slots.
+decode (the CUDA min-sum kernel on the card) -> TB CRC. The DL and UL
+callers (phy/pdsch_rx.py, phy/pusch_rx.py) differ in their DMRS symbol
+schedule, circular-buffer size (LBRM Ncb or Ncb = N) and sequences. The
+plan-time part runs once in build_batch_rx_core; the returned core() is
+plain tensor code batched over slots.
 """
 from __future__ import annotations
 
@@ -17,11 +20,11 @@ import torch
 
 from python_5gtoolbox_tpu_torch.ops import crc as crc_ops
 from python_5gtoolbox_tpu_torch.ops import ldpc as ldpc_ops
+from python_5gtoolbox_tpu_torch.ops.modulation import QM_NAME
 from python_5gtoolbox_tpu_torch.rx import ce_batch
-from python_5gtoolbox_tpu_torch.rx.equalize import equalize_and_demod_traced
-
-_MODTYPE = {1: "pi/2-bpsk", 2: "qpsk", 4: "16qam", 6: "64qam",
-            8: "256qam", 10: "1024qam"}
+from python_5gtoolbox_tpu_torch.rx.demod import demodulate
+from python_5gtoolbox_tpu_torch.rx.equalize import (
+    LINEAR_EQUALIZERS, equalize_and_demod_traced, mmse, zf)
 
 
 def data_re_layout(ports, nl: int, ncdm: int, rb_size: int, ssi: int,
@@ -43,40 +46,31 @@ def data_re_layout(ports, nl: int, ncdm: int, rb_size: int, ssi: int,
     return dmrs_data_idx, qm * nl * n_data_re
 
 
-def sch_decode_plan(tbsize: int, rate1024: float, G: int, qm: int,
-                    nl: int, tbs_lbrm: int | None):
-    """(tb_poly, B, bgn, info, ncb, er_list) — 38.212 7.2/6.2 sizing.
-    tbs_lbrm None => Ncb = N (no LBRM)."""
-    A = tbsize
-    tb_poly = "24A" if A > 3824 else "16"
-    B = A + (24 if A > 3824 else 16)
-    bgn = 1
-    if (A <= 292 or (A <= 3824 and rate1024 <= 0.67 * 1024)
-            or rate1024 <= 0.25 * 1024):
-        bgn = 2
-    info = ldpc_ops.get_cbs_info(B, bgn)
-    ncb = info.N if tbs_lbrm is None else \
-        min(info.N, math.floor(tbs_lbrm / (info.C * 2 / 3)))
-    er_list = ldpc_ops.get_er_ldpc(G, info.C, qm, nl)
-    return tb_poly, B, bgn, info, ncb, er_list
-
-
 def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
                         ncdm, scs, n_sc, nr, qm, tbsize, rate1024,
                         tbs_lbrm, rv, algo, ldpc_cfg, ce_config,
-                        symlist, scaling, harq=False):
+                        symlist, scaling, harq=False,
+                        transform_precode=False):
     """-> (core(rx (S, Nr, 14*n_sc) complex64, dmrs (S, nsym, rb*6)
     complex64, scr_sign (G,) float32[, llr_prev (S, C, N)]) ->
     (err (S,) int8, tbblk (S, A) int8[, llr_dns (S, C, N)]), G).
 
     harq=True returns the rate-recovered buffer, soft-combined with
     llr_prev where given (where both are nonzero the two are averaged),
-    so that rv-cycled transmissions can be chained.
+    so that rv-cycled transmissions can be chained. tbs_lbrm None means
+    Ncb = N (UL-SCH). transform_precode: DFT-s-OFDM, whose whole-symbol
+    DFT blocks need 1 layer, no data on DMRS symbols (NumCDM 2) and a
+    linear equalizer that gives per-RE symbol estimates.
     """
-    modtype = _MODTYPE[qm]
+    modtype = QM_NAME[qm]
+    if transform_precode:
+        assert nl == 1 and ncdm == 2, \
+            "transform precoding needs 1 layer and NumCDM=2"
+        assert algo in LINEAR_EQUALIZERS, \
+            f"transform precoding needs a linear equalizer, got {algo}"
     dmrs_data_idx, G = data_re_layout(ports, nl, ncdm, rb_size, ssi, nsym,
                                       symlist, qm)
-    tb_poly, B, bgn, info, ncb, er_list = sch_decode_plan(
+    tb_poly, B, bgn, info, ncb, er_list = ldpc_ops.sch_plan(
         tbsize, rate1024, G, qm, nl, tbs_lbrm)
     rs_info = dict(RSSymMap=list(symlist), RE_distance=4,
                    NumCDMGroupsWithoutData=ncdm, scs=scs)
@@ -134,20 +128,25 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
         h = torch.cat(hs, dim=1)
         cv = torch.cat(cvs, dim=1)
         n_re = y.shape[1]
-        llr = equalize_and_demod_traced(
-            y.reshape(s * n_re, nr), h.reshape(s * n_re, nr, nl),
-            cv.reshape(s * n_re, nr, nr), modtype, algo)
+        y, h = y.reshape(s * n_re, nr), h.reshape(s * n_re, nr, nl)
+        cv = cv.reshape(s * n_re, nr, nr)
+        if transform_precode:
+            # de-precode each symbol's Msc block; the LLRs take the noise
+            # variance from before the IDFT, as the JAX core does
+            fn_eq = zf if algo.startswith("ZF") else mmse
+            s_est, nv = fn_eq(y, h, cv, irc=algo.endswith("IRC"))
+            m_sc = rb_size * 12
+            yi = torch.fft.ifft(s_est.reshape(s, n_re // m_sc, m_sc),
+                                dim=-1) * math.sqrt(m_sc)
+            _, llr = demodulate(yi.reshape(-1), modtype, nv.reshape(-1))
+        else:
+            llr = equalize_and_demod_traced(y, h, cv, modtype, algo)
         llr = llr.reshape(s, G) * scr_sign[None, :]
 
         # ---- de-rate-match (Er groups) -> (S, C, N)
         grps = []
         g_off = 0
-        c0 = 0
-        while c0 < info.C:
-            E = er_list[c0]
-            c1 = c0
-            while c1 < info.C and er_list[c1] == E:
-                c1 += 1
+        for c0, c1, E in ldpc_ops.er_groups(er_list):
             grp = llr[:, g_off: g_off + (c1 - c0) * E] \
                 .reshape(s * (c1 - c0), E)
             mx = 10.0 * grp.abs().amax(dim=-1, keepdim=True)
@@ -155,7 +154,6 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
                                             max_llr=mx)
             grps.append(rec.reshape(s, c1 - c0, info.N))
             g_off += (c1 - c0) * E
-            c0 = c1
         llr_dns = torch.cat(grps, dim=1)                    # (S, C, N)
 
         if llr_prev is not None:

@@ -14,6 +14,8 @@ import torch
 from python_5gtoolbox_tpu_torch.rx.demod import demodulate
 
 _EPS = 1e-6
+# the equalizers ported so far (the ML family is not)
+LINEAR_EQUALIZERS = ("ZF", "ZF-IRC", "MMSE", "MMSE-IRC")
 
 
 def _h(m):
@@ -103,7 +105,7 @@ def equalize_and_demod_traced(y, h, cov, modtype: str, algo: str):
     """y (N, Nr), h (N, Nr, NL), cov (N, Nr, Nr) -> llr (N*NL*Qm,) in the
     reference serialization order (per RE: layers x Qm). Linear
     equalizers only."""
-    if algo not in ("ZF", "ZF-IRC", "MMSE", "MMSE-IRC"):
+    if algo not in LINEAR_EQUALIZERS:
         raise NotImplementedError(f"equalizer {algo!r} is not ported yet")
     fn = zf if algo.startswith("ZF") else mmse
     s, nv = fn(y, h, cov, irc=algo.endswith("IRC"))

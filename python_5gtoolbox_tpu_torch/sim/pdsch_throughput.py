@@ -185,17 +185,32 @@ def run_pdsch_throughput(carrier_config, pdsch_config, chan_cfg,
     replaces the draws. device None -> cuda. prof as in
     pdsch_before_ceq_processing, plus an rx_batch[<algo>] stage.
     """
+    return run_sweep("PDSCH", pdsch_before_ceq_processing, carrier_config,
+                     pdsch_config, chan_cfg, snr_db_list, ceq_algo_list,
+                     n_slots, ce_config, ldpc_config, seed, device, states,
+                     prof)
+
+
+def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
+              snr_db_list, ceq_algo_list, n_slots, ce_config, ldpc_config,
+              seed, device, states, prof):
+    """The SNR loop of the PDSCH and PUSCH sweeps: before_ceq (the
+    sweep's *_before_ceq_processing) makes each point's channel object,
+    slot numbers and rx_fd (Nr, S*14*n_sc) from seed + 7919 * i, then one
+    slot-batched RX call per equalizer on the allocated slots leaves the
+    flags on the device; the flags of all points come back in one
+    transfer at the end and print as '<label> snr=...' lines."""
     dev = resolve_device(device)
     prof_ = prof or _NullProfiler()
     ldpc_config = dict(DEFAULT_LDPC_CONFIG, **(ldpc_config or {}))
     ce_cfg = _ce_config(ce_config, chan_cfg, carrier_config["scs"])
-    period = pdsch_config["period_in_slot"]
-    allocated = pdsch_config["allocated_slots"]
+    period = ch_config["period_in_slot"]
+    allocated = ch_config["allocated_slots"]
     pending = []      # (snr, n_alloc, {algo: ok flags on the device})
-    nr_pdsch = None
+    obj = None
     for i_snr, snr in enumerate(snr_db_list):
-        nr_pdsch, slots, rx_fd = pdsch_before_ceq_processing(
-            carrier_config, pdsch_config, chan_cfg, -snr, n_slots,
+        obj, slots, rx_fd = before_ceq(
+            carrier_config, ch_config, chan_cfg, -snr, n_slots,
             seed + 7919 * i_snr, device=dev,
             state=None if states is None else states[i_snr], prof=prof)
         alloc = [i for i, slot in enumerate(slots)
@@ -208,11 +223,11 @@ def run_pdsch_throughput(carrier_config, pdsch_config, chan_cfg,
         full = rx_fd.reshape(nr_ant, n_slots, slot_size).transpose(0, 1)
         rx_stack = full if len(alloc) == n_slots else \
             full[torch.as_tensor(alloc, device=dev)]
-        nr_pdsch.rvidx = -1
+        obj.rvidx = -1
         oks = {}
         for algo in ceq_algo_list:
             with prof_.stage(f"rx_batch[{algo}]"):
-                oks[algo], _ = nr_pdsch.rx_process_batch(
+                oks[algo], _ = obj.rx_process_batch(
                     rx_stack, [slots[i] for i in alloc], {"algo": algo},
                     ldpc_config, ce_cfg, fetch=False)
         pending.append((snr, len(alloc), oks))
@@ -228,6 +243,7 @@ def run_pdsch_throughput(carrier_config, pdsch_config, chan_cfg,
                 npass = int(np.sum(flat[off: off + ntot]))
                 off += ntot
             results[algo].append(npass / max(ntot, 1))
-            print(f"PDSCH snr={snr:+.1f}dB {algo}: {npass}/{ntot} TB passed")
-    results["tbs_bits"] = nr_pdsch.tbsize
+            print(f"{label} snr={snr:+.1f}dB {algo}: {npass}/{ntot} "
+                  f"TB passed")
+    results["tbs_bits"] = obj.tbsize
     return results

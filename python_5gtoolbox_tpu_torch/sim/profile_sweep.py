@@ -1,13 +1,15 @@
-"""Where the link-level PDSCH sweep spends its time on the card.
+"""Where the link-level PDSCH or PUSCH sweep spends its time on the card.
 
     python -m python_5gtoolbox_tpu_torch.sim.profile_sweep \
-        [--rate-mhz 245.76] [--small-alloc] [TRACE.json]
+        [--rate-mhz 245.76] [--small-alloc | --pusch] [TRACE.json]
 
 Runs the bench configuration (pdsch_throughput.bench_link_level_config,
 6 SNR points x 20 slots; with --small-alloc its small allocation,
-small_alloc_link_level_config) twice after one warm run, at the carrier
-rate or, with --rate-mhz, with the waveform, the channel and the RX front
-end at that sample rate, and prints one JSON line each:
+small_alloc_link_level_config; with --pusch the transform-precoded UL
+sweep, pusch_throughput.bench_link_level_pusch_tp_config, at the carrier
+rate) twice after one warm run, at the carrier rate or, with --rate-mhz,
+with the waveform, the channel and the RX front end at that sample rate,
+and prints one JSON line each:
   * "stages": host wall time per stage of the sweep (tx_waveform,
     channel, rx_lowphy, rx_batch[MMSE-IRC]), each stage ended by
     torch.cuda.synchronize();
@@ -29,6 +31,7 @@ import time
 import torch
 
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim
 
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
 N_SLOTS = 20
@@ -56,16 +59,21 @@ class SyncStageTimer:
         self.seconds[name] += time.perf_counter() - t0
 
 
-def _run_sweep(rate_mhz=None, prof=None, small_alloc=False):
-    carrier, pdsch, chan, ce, ldpc = (sim.small_alloc_link_level_config()
-                                      if small_alloc
-                                      else sim.bench_link_level_config())
+def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False):
+    if pusch:
+        carrier, ch_cfg, chan, ce, ldpc = \
+            usim.bench_link_level_pusch_tp_config()
+        run = usim.run_pusch_throughput
+    else:
+        carrier, ch_cfg, chan, ce, ldpc = (
+            sim.small_alloc_link_level_config() if small_alloc
+            else sim.bench_link_level_config())
+        run = sim.run_pdsch_throughput
     if rate_mhz is not None:
         carrier["samplerate_in_mhz"] = rate_mhz
-    return sim.run_pdsch_throughput(carrier, pdsch, chan, SNRS,
-                                    ["MMSE-IRC"], n_slots=N_SLOTS,
-                                    ce_config=ce, ldpc_config=ldpc, seed=3,
-                                    device="cuda", prof=prof)
+    return run(carrier, ch_cfg, chan, SNRS, ["MMSE-IRC"], n_slots=N_SLOTS,
+               ce_config=ce, ldpc_config=ldpc, seed=3, device="cuda",
+               prof=prof)
 
 
 def main() -> None:
@@ -75,19 +83,25 @@ def main() -> None:
     ap.add_argument("--small-alloc", action="store_true",
                     help="MCS 0 on 12 RBs (Zc 80) in place of the bench "
                          "allocation")
+    ap.add_argument("--pusch", action="store_true",
+                    help="the transform-precoded UL sweep (carrier rate "
+                         "only)")
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
-    rate, small = args.rate_mhz, args.small_alloc
+    if args.pusch and (args.rate_mhz is not None or args.small_alloc):
+        ap.error("--pusch runs at the carrier rate on its own allocation")
+    rate, small, pusch = args.rate_mhz, args.small_alloc, args.pusch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _run_sweep(rate, small_alloc=small)                  # warm
+    _run_sweep(rate, small_alloc=small, pusch=pusch)     # warm
     timer = SyncStageTimer()
     t0 = time.perf_counter()
-    _run_sweep(rate, timer, small)
+    _run_sweep(rate, timer, small, pusch)
     wall = time.perf_counter() - t0
     total = sum(timer.seconds.values())
     print(json.dumps(dict(
-        phase="stages", rate_mhz=rate, small_alloc=small, wall_s=wall,
+        phase="stages", rate_mhz=rate, small_alloc=small, pusch=pusch,
+        wall_s=wall,
         seconds=timer.seconds,
         share={k: v / total for k, v in timer.seconds.items()})), flush=True)
 
@@ -95,7 +109,7 @@ def main() -> None:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _run_sweep(rate, small_alloc=small)
+        _run_sweep(rate, small_alloc=small, pusch=pusch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -115,7 +129,8 @@ def main() -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps(dict(
-        phase="kernels", rate_mhz=rate, small_alloc=small, wall_s=wall,
+        phase="kernels", rate_mhz=rate, small_alloc=small, pusch=pusch,
+        wall_s=wall,
         device_busy_s=busy,
         device_busy_share=busy / wall,
         launches=sum(r["calls"] for r in rows), n_kernel_names=len(rows),

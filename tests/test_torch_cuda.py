@@ -31,7 +31,7 @@ def cuda_device():
 
 @pytest.mark.parametrize("mode", ["same", "up2", "down2"])
 @pytest.mark.parametrize("bw,shape", [(20, (4, 307200)), (20, (8, 3001)),
-                                      (100, (2, 70000))])
+                                      (100, (2, 70000)), (20, (2, 307200))])
 def test_banded_fir_kernel_matches_plain(cuda_device, mode, bw, shape):
     taps = filters.fir_coeff(30, bw)
     gen = torch.Generator(device=cuda_device).manual_seed(bw)
@@ -90,7 +90,8 @@ def test_banded_fir_staging_paths(cuda_device, n, mode, t_in, offset):
 
 
 @pytest.mark.parametrize("bw,shape", [(20, (4, 307200)), (100, (2, 70001)),
-                                      (5, (3, 130)), (100, (1, 1))])
+                                      (5, (3, 130)), (100, (1, 1)),
+                                      (40, (2, 614400)), (40, (2, 1228800))])
 def test_fir_up2_fused_kernel_matches_plain(cuda_device, bw, shape):
     fir, hb = filters.fir_coeff(30, bw), filters.halfband_coeff()
     gen = torch.Generator(device=cuda_device).manual_seed(bw)
@@ -222,7 +223,8 @@ def test_fir_up2_fused_symbols_every_carrier(cuda_device, scs, bw, n_slots):
 @pytest.mark.parametrize("scs,bw,nant,n_slots", [(30, 20, 2, 3),
                                                  (30, 20, 1, 1),
                                                  (15, 20, 1, 2),
-                                                 (30, 100, 2, 2)])
+                                                 (30, 100, 2, 2),
+                                                 (30, 40, 1, 20)])
 def test_duc_from_spec_kernel_matches_plain(cuda_device, scs, bw, nant,
                                             n_slots):
     fc = 3_500_000_000
@@ -361,7 +363,8 @@ def _assert_same_decode(got, ref):
 @pytest.mark.parametrize("zc,bgn,batch,snr", [(352, 2, 20, -2.0),
                                               (352, 2, 20, -6.0),
                                               (384, 1, 8, 0.0),
-                                              (16, 2, 30, 1.0)])
+                                              (16, 2, 30, 1.0),
+                                              (288, 2, 20, -2.0)])
 def test_ldpc_kernel_matches_plain(cuda_device, zc, bgn, batch, snr):
     llr = _noisy_llrs(cuda_device, zc, bgn, batch, snr)
     before = kernels.LAUNCHES["ldpc_minsum_flooded"]
@@ -607,6 +610,21 @@ def test_small_alloc_sweep_goes_through_the_packed_kernel(cuda_device):
     assert res["MMSE-IRC"] == [1.0, 0.0] and res["tbs_bits"] == 736
     assert kernels.LAUNCHES["ldpc_minsum_packed"] == 2
     assert kernels.LAUNCHES["ldpc_minsum_flooded"] == 0
+
+
+@pytest.mark.parametrize("tp", [1, 0])
+def test_ul_sweep_goes_through_both_kernels(cuda_device, tp):
+    from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim
+    carrier, pusch, chan, ce, ldpc = usim.bench_link_level_pusch_tp_config()
+    pusch["nTransPrecode"] = tp
+    kernels.reset_launches()
+    res = usim.run_pusch_throughput(carrier, pusch, chan, [25.0, -20.0],
+                                    ["MMSE-IRC"], n_slots=4, ce_config=ce,
+                                    ldpc_config=ldpc, device=cuda_device)
+    assert res["MMSE-IRC"] == [1.0, 0.0] and res["tbs_bits"] == 2600
+    assert kernels.LAUNCHES["banded_fir"] == 4
+    assert kernels.LAUNCHES["ldpc_minsum_flooded"] == 2
+    assert kernels.LAUNCHES["ldpc_minsum_packed"] == 0
 
 
 def test_decoder_study_on_card_matches_cpu(cuda_device):

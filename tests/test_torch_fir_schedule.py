@@ -101,6 +101,15 @@ def test_tiled_banded_fir_short_rows(n, mode, t_in):
     _check_fir(n, mode, t_in, planes=3)
 
 
+@pytest.mark.parametrize("planes", [2, 4])
+def test_tiled_banded_fir_at_ul_sweep_shapes(planes):
+    """The UL sweep's channel filters at the carrier rate (BW 20, 20
+    slots, 71 taps): TX on 1 antenna (2 planes), RX on 2 (4 planes)."""
+    plan = _check_fir(71, "same", 307200, planes)
+    assert (plan.tiles_per_block, plan.stages, plan.vec) == (1, 1, True)
+    assert plan.blocks == planes * plan.tiles
+
+
 def test_fir_plan_keeps_every_tap():
     """The branches together hold each tap once (scaled), nothing else:
     the halfband's near-zero taps are kept."""
@@ -264,6 +273,7 @@ def _spec_case(scs, bw, nant, n_slots, seed=0):
     (30, 20, 1, 3, 16),        # non-portable cluster, 42 padded to 48
     (30, 100, 1, 1, None),     # nfft 4096, 287 taps
     (30, 100, 2, 2, 5),
+    (30, 40, 1, 2, None),      # nfft 2048, 143 taps: the UL waveform's
 ])
 def test_cluster_halo_model_matches_plain(scs, bw, nant, n_slots, cluster):
     spec, cps, fir, hb, pc = _spec_case(scs, bw, nant, n_slots)
@@ -294,6 +304,18 @@ def test_duc_plan_idfts_per_symbol_at_bench_width():
     # the sweep's shape: 20 slots of nfft 1024, 71 + 55 taps
     sweep = filters.duc_plan(2, 20, 1024, 71, 55, ofdm._cp_table(30, 1024))
     assert sweep.blocks == 280 and sweep.idfts_per_symbol <= 1.25
+
+
+def test_duc_plan_at_ul_waveform():
+    """gen_ul_waveform's fused branch at the default UL configuration:
+    scs 30 / BW 40 (nfft 2048, 143 + 55 taps), one antenna, 20 slots."""
+    cps = ofdm._cp_table(30, 2048)
+    plan = filters.duc_plan(1, 20, 2048, 143, 55, cps)
+    assert (plan.cluster, plan.symbols, plan.blocks) == \
+        (filters.DUC_CLUSTER, 280, 280)
+    assert plan.idfts_per_symbol <= 1.25
+    assert 3 * plan.smem_bytes + filters.DUC_STATIC_SMEM \
+        < kernels.SMEM_OPTIN_BYTES
 
 
 def test_duc_plan_even_tiles():

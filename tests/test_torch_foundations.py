@@ -52,7 +52,11 @@ def _no_golden_gen():
 DATA_FILES = ["configs/default_dl_carrier_config.json",
               "configs/default_pdsch_config.json",
               "configs/default_channel_model_config.json",
-              "data/ldpc_basegraphs.npz"]
+              "configs/default_pusch_config.json",
+              "configs/default_ul_carrier_config.json",
+              "configs/default_ul_waveform_config.json",
+              "data/ldpc_basegraphs.npz",
+              "data/lowpapr_phi.npz"]
 
 
 @pytest.mark.parametrize("rel", DATA_FILES)
@@ -60,7 +64,8 @@ def test_data_file_copies_are_identical(rel):
     assert filecmp.cmp(JAX_PKG / rel, PORT / rel, shallow=False)
 
 
-@pytest.mark.parametrize("name", ["dl_carrier", "pdsch", "channel_model"])
+@pytest.mark.parametrize("name", ["dl_carrier", "pdsch", "channel_model",
+                                  "ul_carrier", "pusch", "ul_waveform"])
 def test_default_configs(name):
     assert tconfig.get_default_config(name) == \
         jconfig.get_default_config(name)

@@ -113,6 +113,23 @@ def test_fused_model_at_full_rows(n1, per):
                                                    55).geometry.per
 
 
+def test_fused_model_at_ul_waveform_rows():
+    """gen_ul_waveform's td branch at the default UL configuration (BW 40,
+    nfft 2048, 20 slots, one antenna, 122.88 Msps): 2 planes of 614400
+    samples in, 1228800 out, 143 + 55 taps, the default plan (8 outputs
+    per thread)."""
+    rng = np.random.default_rng(143)
+    x = rng.standard_normal((2, 614400)).astype(np.float32)
+    fir, hb = filters.fir_coeff(30, 40), filters.halfband_coeff()
+    assert len(fir) == 143
+    plan = filters.fused_plan(2, 614400, 143, 55)
+    got = fused_tiled(x.astype(np.float64), fir, hb, plan)
+    ref = filters.fir_up2_fused_plain(torch.as_tensor(x), fir, hb).numpy()
+    assert np.abs(got - ref).max() < TOL
+    assert plan.geometry.per == 8 and plan.vec
+    assert plan.blocks == 2 * plan.tiles
+
+
 def test_fused_plan_choices():
     """Defaults: 8 outputs per thread for FIRs of 143 taps or more where
     that still gives a block per SM (the Dm waveform's rows at BW 100),
@@ -120,6 +137,7 @@ def test_fused_plan_choices():
     tile; the shared memory within the opt-in limit."""
     for shape, per in (((4, 1228800, 287), 8), ((4, 3932160, 287), 8),
                        ((4, 307200, 143), 8), ((4, 307200, 87), 4),
+                       ((2, 614400, 143), 8), ((2, 1228800, 143), 8),
                        ((4, 307200, 71), 4), ((2, 15360, 71), 4),
                        ((1, 4096, 287), 4)):
         plan = filters.fused_plan(*shape, 55)

@@ -21,7 +21,7 @@ N_SM = 132
 
 
 @pytest.mark.parametrize("bgn,n_phase", [(1, 32), (2, 28)])
-@pytest.mark.parametrize("zc", [2, 12, 80, 144, 384])
+@pytest.mark.parametrize("zc", [2, 12, 80, 144, 288, 384])
 def test_phases_cover_rows_in_order_and_share_no_column(bgn, zc, n_phase):
     rows, nrows, _ = dec._graph(bgn, zc)
     ptr = dec.row_phases(bgn, zc)
@@ -84,7 +84,7 @@ def test_row_degree_classes():
             assert not any(len(e) <= v < w for v in dec.DEGREE_CLASSES)
 
 
-@pytest.mark.parametrize("zc", [2, 12, 32, 80, 144, 352, 384])
+@pytest.mark.parametrize("zc", [2, 12, 32, 80, 144, 288, 352, 384])
 def test_cluster_slices(zc):
     slices = dec.cluster_slices(zc)
     assert slices[1] == zc
@@ -166,6 +166,7 @@ def test_layered_by_phase_equals_row_by_row(bgn, zc, kind, semantics):
 
 @pytest.mark.parametrize("bgn,zc,batch,layout", [
     (2, 352, 20, "batch"), (1, 384, 20, "batch"), (2, 352, 512, "batch"),
+    (2, 288, 20, "batch"),
     (1, 384, 512, "batch"), (1, 12, 400, "packed"), (2, 80, 20, "packed"),
     (2, 112, 400, "packed")])
 @pytest.mark.parametrize("schedule", ["flooded", "layered"])
@@ -223,6 +224,12 @@ def test_plan_shapes_of_the_main_paths():
     # the small-allocation sweep: one codeword over five blocks
     p = dec.plan_launch(2, 80, 20, "flooded", "packed", N_SM)
     assert (p.cluster, p.group, p.zl, p.blocks) == (5, 1, 16, 100)
+    # the UL sweep (TBS 2600, BG2, Zc 288): slices of 64 lifting indices,
+    # the last one 32 wide
+    p = dec.plan_launch(2, 288, 20, "flooded", "batch", N_SM)
+    assert (p.cluster, p.zl, p.blocks, p.barriers) == (5, 64, 100, 3)
+    assert dec.cluster_slices(288) == {1: 288, 2: 256, 3: 128, 5: 64,
+                                       9: 32}
 
 
 @pytest.mark.parametrize("kw", [

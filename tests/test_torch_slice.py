@@ -282,13 +282,13 @@ def test_rx_process_batch_matches_jax(rx_grids, snr):
         assert not np.asarray(ok_j).any() and not ok_t.any()
 
 
-def _jax_states(carrier, pdsch, jc, snrs, seed, np_seed):
-    """Per-SNR draws of the JAX sweep run_pdsch_throughput(seed) after
-    np.random.seed(np_seed)."""
+def _jax_states(carrier, tbs, jc, snrs, seed, np_seed):
+    """Per-SNR draws of a JAX sweep (run_pdsch_throughput or
+    run_pusch_throughput at the carrier rate, scs 30, seed, N_SLOTS
+    slots, transport blocks of tbs bits) after np.random.seed(np_seed)."""
     scs = carrier["scs"]
     fs = num.fft_size(num.carrier_prb_size(scs, carrier["BW"])) * scs * 1e3
     n = N_SLOTS * 15 * num.fft_size(num.carrier_prb_size(scs, carrier["BW"]))
-    tbs = jpdsch.Pdsch(pdsch, carrier).tbsize
     rs = np.random.RandomState(np_seed)
     states = []
     for i, snr in enumerate(snrs):
@@ -309,7 +309,8 @@ def test_sweep_front_end_matches_jax():
     _, _, rx_j = jsim.pdsch_before_ceq_processing(
         carrier, pdsch, jc, -snr, N_SLOTS, seed, CE, do_ce=False,
         return_full=True)
-    st = _jax_states(carrier, pdsch, jc, [snr], seed, 13)[0]
+    st = _jax_states(carrier, jpdsch.Pdsch(pdsch, carrier).tbsize, jc, [snr],
+                     seed, 13)[0]
     _, slots, rx_t = tsim.pdsch_before_ceq_processing(
         carrier, pdsch, tc, -snr, N_SLOTS, seed, device="cpu", state=st)
     assert slots == list(range(N_SLOTS))
@@ -324,7 +325,8 @@ def test_sweep_end_to_end_matches_jax():
                                     ceq_algo_list=["MMSE-IRC"],
                                     n_slots=N_SLOTS, ce_config=CE,
                                     ldpc_config=LDPC, seed=seed)
-    states = _jax_states(carrier, pdsch, jc, snrs, seed, 11)
+    states = _jax_states(carrier, jpdsch.Pdsch(pdsch, carrier).tbsize, jc,
+                         snrs, seed, 11)
     got = tsim.run_pdsch_throughput(carrier, pdsch, tc, snrs, ["MMSE-IRC"],
                                     n_slots=N_SLOTS, ce_config=CE,
                                     ldpc_config=LDPC, seed=seed,
