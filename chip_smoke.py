@@ -25,6 +25,15 @@ then drives the port's paths through its entry points:
     and gen_ul_waveform at the default UL configuration (BW 40, 100 RBs,
     256QAM, 20 slots, 122.88 Msps) through both of its branches (the
     spectrum DUC kernel, and OFDM then the flat fused FIR + halfband);
+  * UCI on PUSCH (HARQ-ACK, CSI parts 1 and 2, polar and small-block
+    coded) at the carrier rate on the CP-OFDM UL sweep's configuration:
+    gen_ul_waveform's per-slot branch, the channel and the batched UCI
+    RX (banded FIR, LDPC), every TB and UCI stream exact at 30 dB; the
+    per-slot branch at the default UL configuration with UCI (the flat
+    fused FIR + halfband at 122.88 Msps); the polar SCL decoder at
+    bench.py's three shapes and the polar decoder BLER study
+    (scripts/sim_polar_decoder.py), equal to the CPU's results (plain
+    PyTorch: the JAX package has no Pallas kernel for them);
   * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
     400 codewords per SNR point, six decoder settings) and the
     bit-flipping study's decode, and the decoder bench's shape
@@ -65,6 +74,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device available")
@@ -72,13 +82,15 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from python_5gtoolbox_tpu_torch import kernels  # noqa: E402
 from python_5gtoolbox_tpu_torch.interop import state_from_numpy  # noqa: E402
-from python_5gtoolbox_tpu_torch.ops import filters, ofdm  # noqa: E402
+from python_5gtoolbox_tpu_torch.ops import filters, ofdm, polar  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import polar_decoder as pstudy  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim.profile_sweep import SyncStageTimer  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim  # noqa: E402
 from python_5gtoolbox_tpu_torch.utils.config import (  # noqa: E402
     get_default_config, merged)
@@ -844,6 +856,287 @@ def phase_waveform_ul() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# UCI on PUSCH and the polar decoder. The polar decoder and the UCI code
+# are plain PyTorch (the JAX package has no Pallas kernel for them); the
+# UCI path runs banded_fir, ldpc_minsum and fir_up2_fused.
+# ---------------------------------------------------------------------------
+
+# pusch_slot2 case 6 (polar ACK and CSI1, Reed-Muller CSI2) and the
+# small-block case of tests/test_batch_rx_uci.py (2-bit special table
+# with the x/y placeholders, Reed-Muller CSI1)
+UCI_CONFIGS = {
+    "ack14_csi1_25_csi2_4": dict(
+        EnableACK=1, NumACKBits=14,
+        ACKbits=[1, 0, 1, 1, 0, 0, 1, 0, 1, 1, 1, 0, 0, 1],
+        EnableCSI1=1, NumCSI1Bits=25, CSI1bits=[1, 0] * 12 + [1],
+        EnableCSI2=1, NumCSI2Bits=4, CSI2bits=[0, 1, 1, 0]),
+    "ack2_csi1_5": dict(
+        EnableACK=1, NumACKBits=2, ACKbits=[1, 0], EnableCSI1=1,
+        NumCSI1Bits=5, CSI1bits=[1, 0, 1, 1, 0], EnableCSI2=0,
+        NumCSI2Bits=0),
+}
+_UCI_FIELDS = (("ack", "ACKbits"), ("csi1", "CSI1bits"), ("csi2", "CSI2bits"))
+UCI_SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
+UCI_SLOTS = 20
+
+
+def _uci_exact(uci, pusch, n_slots) -> dict:
+    """Per stream: slots whose bits equal what was sent and whose ok is
+    set."""
+    out = {}
+    for name, field in _UCI_FIELDS:
+        if name in uci:
+            bits, ok = uci[name]
+            out[name] = int((np.all(bits == np.asarray(pusch[field]), axis=1)
+                             & ok).sum())
+    return out
+
+
+def phase_pusch_uci() -> dict:
+    """UCI on PUSCH at the carrier rate on the CP-OFDM UL sweep's
+    configuration (bench.py:327 with nTransPrecode 0: BW 20, scs 30, 1x2,
+    48 RBs, MCS 2 of MCStable61411, NumCDM 2, DMRSAddPos 1), for both UCI
+    configurations: gen_ul_waveform's per-slot branch (20 slots; one
+    banded_fir on the TX), the Rayleigh channel at fm 200 Hz, the RX
+    front end (one banded_fir) and the batched UCI RX with MMSE-IRC (one
+    ldpc_minsum flooded decode of the 20 slots' UL-SCH), at 0..5 dB
+    (warm, timed per stage), then at 30 dB: every TB and every UCI
+    stream exact. Returns the timed run's launches, summed."""
+    total = {}
+    snrs, n_slots = UCI_SNRS, UCI_SLOTS
+    for name, uci in UCI_CONFIGS.items():
+        carrier, pusch, chan, ce, ldpc = _pusch_cp_config()
+        pusch.update(uci)
+        ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
+        nr = carrier["Nr"]
+
+        def point(snr, seed, timer, state=None):
+            obj, slots, rx_fd = usim.pusch_before_ceq_processing(
+                carrier, pusch, chan, -snr, n_slots, seed=seed, device=DEV,
+                state=state, prof=timer)
+            stack = rx_fd.reshape(nr, n_slots, -1).transpose(0, 1)
+            with timer.stage("rx_batch"):
+                out = obj.rx_process_batch(stack, slots, {"algo": "MMSE-IRC"},
+                                           ldpc, ce_cfg)
+            return obj, out
+
+        for i, snr in enumerate(snrs):                            # warm
+            point(snr, 3 + 7919 * i, SyncStageTimer())
+        kernels.reset_launches()
+        rows = []
+        for i, snr in enumerate(snrs):
+            timer = SyncStageTimer()
+            _, (ok, _, dec) = point(snr, 3 + 7919 * i, timer)
+            ms = {k: v * 1e3 for k, v in timer.seconds.items()}
+            rows.append(dict(snr_db=snr, tb_passed=int(ok.sum()),
+                             uci_exact=_uci_exact(dec, pusch, n_slots),
+                             tx_ms=ms["tx_waveform"], channel_ms=ms["channel"],
+                             rx_ms=ms["rx_lowphy"] + ms["rx_batch"],
+                             stage_ms=ms))
+        launches = dict(kernels.LAUNCHES)
+        want = dict(banded_fir=2 * len(snrs),
+                    ldpc_minsum_flooded=len(snrs))
+        if any(launches[k] != v for k, v in want.items()) \
+                or sum(launches.values()) != sum(want.values()):
+            raise AssertionError(f"pusch_uci {name} launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        trblks = np.random.default_rng(30).integers(
+            0, 2, (n_slots, NrPUSCH(carrier, pusch, device=DEV).tbsize),
+            dtype=np.int8)
+        obj, (ok, tbblk, dec) = point(
+            30.0, 30, SyncStageTimer(),
+            state=state_from_numpy(trblks=trblks, device=DEV))
+        exact = _uci_exact(dec, pusch, n_slots)
+        streams = [k for k, f in _UCI_FIELDS if pusch.get(
+            {"ack": "EnableACK", "csi1": "EnableCSI1",
+             "csi2": "EnableCSI2"}[k])]
+        emit("pusch_uci", config=name, tbs_bits=obj.tbsize,
+             g_ulsch=int(obj.uci_plan(obj._dmrs_symlist())
+                         ["ulsch_pos"].size),
+             uci_bits={k: len(pusch[f]) for k, f in _UCI_FIELDS
+                       if k in streams},
+             n_slots=n_slots, points=rows, launches=launches,
+             at_30db=dict(tb_passed=int(ok.sum()),
+                          tb_bits_exact=bool(np.array_equal(tbblk, trblks)),
+                          uci_exact=exact))
+        if int(ok.sum()) != n_slots or not np.array_equal(tbblk, trblks) \
+                or sorted(exact) != sorted(streams) \
+                or any(v != n_slots for v in exact.values()):
+            raise AssertionError(f"pusch_uci {name} at 30 dB: "
+                                 f"{int(ok.sum())}/{n_slots} TBs, UCI "
+                                 f"{exact}")
+    return total
+
+
+def phase_waveform_ul_uci() -> dict:
+    """gen_ul_waveform at the default UL configuration (BW 40, 100 RBs,
+    256QAM MCS 20, 1 antenna port, 20 slots, 122.88 Msps) with the ACK 5
+    + CSI1 4 bits of pusch_slot2 case 5: the per-slot branch (process per
+    slot, OFDM, slot phase, one fir_up2_fused on 2x614400), held against
+    the same chain with the plain filter. Returns its launches."""
+    carrier = get_default_config("ul_carrier")
+    pusch = merged(get_default_config("pusch"),
+                   dict(nNrOfAntennaPorts=1, nPMI=0, EnableACK=1,
+                        NumACKBits=5, ACKbits=[1, 0, 1, 1, 0], EnableCSI1=1,
+                        NumCSI1Bits=4, CSI1bits=[1, 1, 0, 1]))
+    wf = get_default_config("ul_waveform")
+
+    def run():
+        ch = NrPUSCH(carrier, pusch, rng=np.random.default_rng(22),
+                     device=DEV)
+        assert not ch.tx_batch_supported()
+        return ul_wf.gen_ul_waveform(wf, carrier, [ch])
+    kernels.reset_launches()
+    fd, td, ul = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["fir_up2_fused"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"gen_ul_waveform with UCI launches {launches}")
+    y = filters.fir_up2_fused_plain(
+        torch.cat([td.real, td.imag]),
+        filters.fir_coeff(carrier["scs"], carrier["BW"]),
+        filters.halfband_coeff())
+    err = _check("gen_ul_waveform", "UCI, per-slot branch", ul,
+                 torch.complex(y[:1], y[1:]))
+    if not torch.isfinite(torch.view_as_real(fd)).all() \
+            or not (fd != 0).any():
+        raise AssertionError("gen_ul_waveform with UCI: empty or "
+                             "non-finite grid")
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    emit("waveform_ul_uci", n_slots=wf["numofslots"], bw=carrier["BW"],
+         rbs=pusch["ResAlloType1"]["RBSize"], uci_bits=dict(ack=5, csi1=4),
+         rate_mhz=wf["samplerate_in_mhz"], fd_shape=list(fd.shape),
+         td_shape=list(td.shape), ul_shape=list(ul.shape),
+         launches=launches, max_abs_err=err,
+         warm_ms=(time.perf_counter() - t0) * 1e3)
+    return launches
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen operations run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _kernels_per_call(fn):
+    """CUDA kernels the profiler sees in one fn() (None if it sees none)."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) or None
+    except Exception as exc:                  # the profiler is optional here
+        print(f"chip_smoke: profiler: {exc!r}", file=sys.stderr)
+        return None
+
+
+POLAR_SHAPES = [
+    # bench.py:bench_polar_scl (DL scale, N 512), the UL UCI scale (N
+    # 1024) and 64 PDCCH candidates with one RNTI each (bench.py:390-400)
+    dict(name="n512", B=1024, K=164, E=512, L=8, n_max=9, i_il=1,
+         crc_len=24),
+    dict(name="n1024", B=512, K=512, E=1024, L=8, n_max=10, i_il=0,
+         crc_len=11),
+    dict(name="pdcch64", B=64, K=64, E=432, L=8, n_max=9, i_il=1,
+         crc_len=24, rnti=True),
+]
+
+
+def phase_polar() -> None:
+    """polar_decode_scl on the card at the three bench shapes on random
+    LLRs (bench.py's stimulus, N-length here): the first call's ms (it
+    captures the CUDA graph), warm ms, codewords/s, ATen operations per
+    decode (the eager run's, which the graph holds) and the CUDA kernels
+    one replay launches; the first 32 rows (all 64 candidates) decoded
+    again on the CPU must give the same ck and ok."""
+    rows = []
+    for sh in POLAR_SHAPES:
+        N, _ = polar.gen_n_value(sh["K"], sh["E"], sh["n_max"])
+        rng = np.random.default_rng(2)
+        llr = torch.as_tensor((rng.normal(size=(sh["B"], N)) * 2).astype(
+            np.float32), device=DEV)
+        rnti = torch.as_tensor(np.random.default_rng(5).integers(
+            1, 65519, sh["B"]), device=DEV) if sh.get("rnti") else 0
+        args = (sh["E"], sh["K"], sh["L"], sh["n_max"], sh["i_il"],
+                sh["crc_len"], 0)
+
+        def run():
+            return polar.polar_decode_scl(llr, *args, rnti)
+        t0 = time.perf_counter()
+        run()                                   # warm: captures the graph
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ck, ok = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        _, dev_ms = _event_ms(run)
+        # the operations the graph holds: the same decode run eagerly on
+        # the CPU (their count does not depend on the batch)
+        with _OpCount() as ops:
+            polar.polar_decode_scl(
+                llr[:2].cpu(), *args,
+                rnti[:2].cpu() if torch.is_tensor(rnti) else rnti)
+        counts = dict(aten_ops=ops.n, cuda_kernels=_kernels_per_call(run))
+        n_cpu = min(sh["B"], 32 if sh["B"] > 64 else 64)
+        ck_c, ok_c = polar.polar_decode_scl(
+            llr[:n_cpu].cpu(), *args,
+            rnti[:n_cpu].cpu() if torch.is_tensor(rnti) else rnti)
+        equal = bool(torch.equal(ck[:n_cpu].cpu(), ck_c)
+                     and torch.equal(ok[:n_cpu].cpu(), ok_c))
+        row = dict(shape=sh["name"], B=sh["B"], K=sh["K"], E=sh["E"], N=N,
+                   L=sh["L"], n_max=sh["n_max"], i_il=sh["i_il"],
+                   crc_len=sh["crc_len"], per_row_rnti=torch.is_tensor(rnti),
+                   first_call_ms=first_ms, warm_ms=ms, event_ms=dev_ms,
+                   codewords_per_s=sh["B"] / (ms / 1e3),
+                   per_decode=counts, crc_ok=int(ok.sum()),
+                   cpu_rows=n_cpu, cpu_equal=equal)
+        rows.append(row)
+        emit("polar", **row)
+        if not equal:
+            raise AssertionError(f"polar {sh['name']}: card != CPU on the "
+                                 f"first {n_cpu} rows")
+
+
+def phase_polar_study() -> None:
+    """sim/polar_decoder.py at scripts/sim_polar_decoder.py's constants
+    (K 64, E 128, nMax 10, iIL 0, CRC11; SC, SCL L 8 and 32; 7 points x
+    400 trials) on the card, then on the CPU: equal BLER."""
+    args = (pstudy.K, pstudy.E, pstudy.N_MAX, pstudy.I_IL, pstudy.CRC_LEN,
+            pstudy.ALGO_LIST, pstudy.L_LIST, pstudy.SNR_DB_LIST, None)
+    t0 = time.perf_counter()
+    _, cfgs, card = pstudy.run_polar_simulation(
+        *args, n_trials=pstudy.N_TRIALS, device=DEV, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = pstudy.run_polar_simulation(*args, n_trials=pstudy.N_TRIALS,
+                                      device="cpu", verbose=False)[2]
+    cpu_wall = time.perf_counter() - t0
+    emit("polar_study", n_trials=pstudy.N_TRIALS,
+         snr_db=pstudy.SNR_DB_LIST, wall_s=wall, cpu_wall_s=cpu_wall,
+         bler={f"{c['algo']} L={c['L']}": b for c, b in zip(cfgs, card)},
+         cpu_equal=card == cpu)
+    if card != cpu:
+        raise AssertionError(f"polar study: card {card} != CPU {cpu}")
+    for b in card:
+        if not b[0] > b[-1]:
+            raise AssertionError(f"polar study BLER does not fall: {card}")
+
+
 def _z_score(p1, p2, n):
     """Two-sample z of two BLERs over n trials each (the criterion of
     tools/ldpc_fast_mode.py)."""
@@ -1055,7 +1348,11 @@ def main() -> None:
     # the uplink: per phase, the launches of each kernel in its run
     ul_launches = dict(sweep_pusch_tp=phase_sweep_pusch_tp(),
                        sweep_pusch_cp=phase_sweep_pusch_cp(),
-                       waveform_ul=phase_waveform_ul())
+                       waveform_ul=phase_waveform_ul(),
+                       pusch_uci=phase_pusch_uci(),
+                       waveform_ul_uci=phase_waveform_ul_uci())
+    phase_polar()
+    phase_polar_study()
     for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
                  "ldpc_minsum_layered_fast"):
         rows[name] = bench_rows[name]

@@ -4,7 +4,11 @@ The port cannot reproduce jax.random streams or the JAX package's global
 numpy draws, so to compute exactly what a JAX run computed, the caller
 takes that run's draws as numpy arrays and passes them here:
 
-  trblks (S, TBSize) 0/1            -> Pdsch.tx_grid_batch(trblks=)
+  trblks (S, TBSize) 0/1            -> Pdsch / NrPUSCH.tx_grid_batch(trblks=),
+                                        gen_ul_waveform(trblks=) on either
+                                        branch (one row per allocated slot;
+                                        the per-slot branch hands each row
+                                        to NrPUSCH.process(trblk=))
   taps   per path (N, Nr, Nt) complex -> NrChannelModel.filter(taps=)
   noise  (Nr, N) complex, or a (real, imag) pair of unit normals
                                      -> NrChannelModel.filter(noise=)

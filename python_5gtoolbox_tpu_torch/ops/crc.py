@@ -86,15 +86,21 @@ def _chunked_tables(length: int, poly: str, chunk: int):
     return pad, Rc, mats
 
 
-def _mask_bits(mask: int, L: int) -> np.ndarray:
-    """Reference masking: 24-bit MSB-first expansion of mask, keep L LSBs."""
-    shifts = np.arange(23, -1, -1)[24 - L:]
-    return np.array([(int(mask) >> int(s)) & 1 for s in shifts], np.int8)
+def _mask_bits(mask, L: int, device=None) -> torch.Tensor:
+    """Reference masking: 24-bit MSB-first expansion of mask, keep the L
+    LSBs. mask: an int -> (L,), or an int tensor (...) -> (..., L)."""
+    shifts = torch.arange(L - 1, -1, -1, device=device)
+    if isinstance(mask, (int, np.integer)):
+        return ((int(mask) >> shifts) & 1).to(torch.int8)
+    mask = torch.as_tensor(mask, device=device).to(torch.int64)
+    return ((mask[..., None] >> shifts) & 1).to(torch.int8)
 
 
-def crc_compute(bits: torch.Tensor, poly: str, mask: int = 0
-                ) -> torch.Tensor:
-    """CRC parity of `bits` (..., A) 0/1 -> (..., L) int8, batched."""
+def crc_compute(bits: torch.Tensor, poly: str, mask=0) -> torch.Tensor:
+    """CRC parity of `bits` (..., A) 0/1 -> (..., L) int8, batched.
+
+    mask: an int, or an int tensor of the leading shape (one RNTI per
+    message, e.g. per PDCCH candidate) that broadcasts against (...)."""
     A = bits.shape[-1]
     L = crc_len(poly)
     dev = bits.device
@@ -115,19 +121,18 @@ def crc_compute(bits: torch.Tensor, poly: str, mask: int = 0
             "...nl,nlk->...k", partial,
             torch.as_tensor(mats, dtype=torch.float32, device=dev)), 2.0)
     rem = rem.to(torch.int8)
-    if mask:
-        rem = rem ^ torch.as_tensor(_mask_bits(mask, L), device=dev)
+    if not isinstance(mask, (int, np.integer)) or mask:
+        rem = rem ^ _mask_bits(mask, L, dev)
     return rem
 
 
-def crc_encode(bits: torch.Tensor, poly: str, mask: int = 0) -> torch.Tensor:
+def crc_encode(bits: torch.Tensor, poly: str, mask=0) -> torch.Tensor:
     """Append CRC parity bits: (..., A) -> (..., A+L) int8."""
     rem = crc_compute(bits, poly, mask)
     return torch.cat([bits.to(torch.int8), rem], dim=-1)
 
 
-def crc_check(blkandcrc: torch.Tensor, poly: str, mask: int = 0
-              ) -> torch.Tensor:
+def crc_check(blkandcrc: torch.Tensor, poly: str, mask=0) -> torch.Tensor:
     """Return per-message error flag (...,) int8; 0 = CRC pass."""
     L = crc_len(poly)
     rem = crc_compute(blkandcrc[..., :-L], poly, mask)

@@ -316,6 +316,7 @@ def _attach_rx_methods():
 
     Pdsch.rx_process_batch = pdsch_rx.PdschRxMixin.rx_process_batch
     Pdsch.rx_batch_prepare = pdsch_rx.PdschRxMixin.rx_batch_prepare
+    Pdsch._rx_core = pdsch_rx.PdschRxMixin._rx_core
 
 
 _attach_rx_methods()

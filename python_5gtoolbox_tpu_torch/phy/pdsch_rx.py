@@ -7,8 +7,9 @@ descrambling, rate recovery, LDPC decode and the TB CRC for a stack of
 slots (rx/batch_core.py). The UL-SCH takes the same path
 (phy/pusch_rx.py) with Ncb = N (tbs_lbrm None) and, for DFT-s-OFDM, the
 de-precode branch of the core; the channel object gives the DMRS
-sequence (dmrs_seq) and the scrambling c_init (scramble_cinit). The
-per-slot RX_process is not ported yet.
+sequence (dmrs_seq), the scrambling c_init (scramble_cinit) and the core
+(_rx_core: the PUSCH builds its own with UCI). The per-slot RX_process
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,25 +22,31 @@ from python_5gtoolbox_tpu_torch.ops.prbs import gen_prbs_np
 from python_5gtoolbox_tpu_torch.phy.pdsch import get_dmrs_symlist
 
 
-@functools.lru_cache(maxsize=None)
-def _batch_rx_fn(key: tuple):
-    """Build the batched-RX core for one static config."""
-    from python_5gtoolbox_tpu_torch.rx.batch_core import build_batch_rx_core
-
+def rx_core_kwargs(key: tuple) -> dict:
+    """The keyword arguments of build_batch_rx_core for one static
+    config key (see PdschRxMixin.rx_batch_prepare)."""
     (rb_start, rb_size, ssi, nsym, ports, nl, ncdm, add_pos, scs, n_sc,
      nr, qm, tbsize, rate1024, tbs_lbrm, rv, algo, ldpc_key, ce_key,
      scaling_db, harq, tp) = key
-    symlist = get_dmrs_symlist(ssi + nsym, add_pos)
-    fn, G = build_batch_rx_core(
+    return dict(
         rb_start=rb_start, rb_size=rb_size, ssi=ssi, nsym=nsym,
         ports=ports, nl=nl, ncdm=ncdm, scs=scs, n_sc=n_sc, nr=nr, qm=qm,
         tbsize=tbsize, rate1024=rate1024, tbs_lbrm=tbs_lbrm, rv=rv,
         algo=algo, ldpc_cfg=dict(zip(("L", "algo", "alpha", "beta"),
                                      ldpc_key)),
-        ce_config=dict(ce_key), symlist=symlist,
+        ce_config=dict(ce_key), symlist=get_dmrs_symlist(ssi + nsym, add_pos),
         scaling=1.0 if ncdm == 1 else 10 ** (scaling_db / 20), harq=harq,
         transform_precode=tp)
-    return fn, G, symlist
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_rx_fn(key: tuple):
+    """Build the batched-RX core for one static config."""
+    from python_5gtoolbox_tpu_torch.rx.batch_core import build_batch_rx_core
+
+    kw = rx_core_kwargs(key)
+    fn, G = build_batch_rx_core(**kw)
+    return fn, G, kw["symlist"]
 
 
 class PdschRxMixin:
@@ -78,13 +85,13 @@ class PdschRxMixin:
         if harq:
             prev = None if llr_prev is None else torch.as_tensor(
                 llr_prev, device=dev)
-            err, tbblk, llr_dns = fn(rx, dmrs, scr_sign, prev)
+            outs = fn(rx, dmrs, scr_sign, prev)
         else:
-            err, tbblk = fn(rx, dmrs, scr_sign)
-        ok = err == 0
+            outs = fn(rx, dmrs, scr_sign)
+        ok, tbblk = outs[0] == 0, outs[1]
         if fetch:
             ok, tbblk = ok.cpu().numpy(), tbblk.cpu().numpy()
-        return (ok, tbblk, llr_dns) if harq else (ok, tbblk)
+        return (ok, tbblk) + tuple(outs[2:])
 
     def rx_batch_prepare(self, nr, slot_list, CEQ_config,
                          LDPC_decoder_config, ce_config, rv=None,
@@ -115,10 +122,14 @@ class PdschRxMixin:
                12 * self.prb_size, nr, self.qm, self.tbsize, self.rate1024,
                self.tbs_lbrm, rv_eff, CEQ_config["algo"], ldpc_key, ce_key,
                -3, harq, bool(cfg.get("nTransPrecode", 0)))
-        fn, G, symlist = _batch_rx_fn(key)
+        fn, G, symlist = self._rx_core(key)
         dmrs = np.stack([
             np.stack([self.dmrs_seq(int(slot), sym) for sym in symlist])
             for slot in slot_list]).astype(np.complex64)
         cinit = self.scramble_cinit()
         scr_sign = (1.0 - 2.0 * gen_prbs_np(cinit, G)).astype(np.float32)
         return fn, dmrs, scr_sign
+
+    def _rx_core(self, key: tuple):
+        """(core, G, DMRS symbols) of a static config key."""
+        return _batch_rx_fn(key)

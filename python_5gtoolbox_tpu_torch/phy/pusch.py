@@ -1,18 +1,24 @@
-"""PUSCH transmit chain: UL-SCH coding, DMRS, DFT-s-OFDM, precoding.
+"""PUSCH transmit chain: UL-SCH and UCI coding, DMRS, DFT-s-OFDM,
+precoding.
 
-Port of python_5gtoolbox_tpu/phy/pusch.py, slot-batched TX of the UL-SCH
-only (tx_grid_batch): TB-CRC -> code-block segmentation -> LDPC encode ->
-rate match with Ncb = N (no LBRM on UL) -> scramble -> pi/2-BPSK..256QAM
--> layer map -> transform-precoding DFT -> codebook precoder -> grid,
-batched over slots and code blocks, with the grid composed from static
-slices as for the PDSCH (phy/pdsch.py:_pdsch_compose_grid). The DMRS is
-the PRBS sequence (CP-OFDM) or the low-PAPR sequence with group or
-sequence hopping (transform precoding).
+Port of python_5gtoolbox_tpu/phy/pusch.py. Two TX paths:
 
-UCI on PUSCH (Queue A item 2) and the per-slot process() (Queue A item
-4) are not ported: configs with UCI are not tx_batch_supported, and
-process() raises. Transport blocks come from an explicit numpy
-Generator, or are passed in (trblks=) to reproduce another run's draws.
+* tx_grid_batch, UL-SCH only, batched over slots: TB-CRC -> code-block
+  segmentation -> LDPC encode -> rate match with Ncb = N (no LBRM on UL)
+  -> scramble -> pi/2-BPSK..256QAM -> layer map -> transform-precoding DFT
+  -> codebook precoder -> grid, with the grid composed from static slices
+  as for the PDSCH (phy/pdsch.py:_pdsch_compose_grid);
+* process, one slot into a shared grid and RE-usage map, with UCI on
+  PUSCH (HARQ-ACK, CSI part 1, CSI part 2; phy/pusch_uci.py): the UL-SCH
+  encode of the batched path at one slot, the UCI coded on the host, the
+  38.212 6.2.7 multiplex as one gather from a placement walk over index
+  tags (cached per layout), then the symbol encode of the batched path,
+  which scrambles the x/y placeholders.
+
+The DMRS is the PRBS sequence (CP-OFDM) or the low-PAPR sequence with
+group or sequence hopping (transform precoding). Transport blocks come
+from the configuration's data_source, from an explicit numpy Generator,
+or are passed in (trblks= / trblk=) to reproduce another run's draws.
 """
 from __future__ import annotations
 
@@ -27,9 +33,13 @@ from python_5gtoolbox_tpu_torch.ops.modulation import (QM_NAME, modulate,
                                                       modulate_np)
 from python_5gtoolbox_tpu_torch.ops.prbs import gen_prbs_np
 from python_5gtoolbox_tpu_torch.phy import tbsize as tbs_mod
+from python_5gtoolbox_tpu_torch.ops.ldpc.segment import sch_plan
 from python_5gtoolbox_tpu_torch.phy.pdsch import (SlotBatchTx, dlsch_encode,
                                                   get_dmrs_symlist)
-from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
+from python_5gtoolbox_tpu_torch.phy.pusch_uci import (
+    encode_uci_on_ulsch, get_ulsch_rm_info, multiplex_tags)
+from python_5gtoolbox_tpu_torch.utils.numerology import (RE_USAGE,
+                                                         carrier_prb_size)
 
 
 def ulsch_encode_batch(trb: torch.Tensor, tbsize: int, qm: int,
@@ -182,10 +192,139 @@ class NrPUSCH(SlotBatchTx):
             n_layers, cfg["nTransPrecode"],
             cfg["ResAlloType1"]["RBSize"] * 12)
 
-    def process(self, fd_slot, usage, slot):
-        raise NotImplementedError(
-            "the per-slot PUSCH TX is not ported (UCI multiplexing: Queue A "
-            "item 2; the per-slot path: item 4); use tx_grid_batch")
+    def process(self, fd_slot: torch.Tensor, usage: torch.Tensor,
+                slot: int, trblk=None):
+        """One slot into a shared grid: fd_slot (ant, 14*n_sc) complex64
+        and usage (ant, 14*n_sc) int8, tensors on self.device, written in
+        place and returned. Gated slots are left as they are. rv cycling
+        and block draws follow tx_grid_batch; trblk (TBSize,) replaces
+        the slot's block."""
+        cfg = self.cfg
+        if (slot % cfg["period_in_slot"]) not in cfg["allocated_slots"]:
+            return fd_slot, usage
+        rv = self.getnextrv()
+        if trblk is None:
+            if self.rvidx == 0 or self.trblk is None:
+                self.trblk = self.get_trblk(self.tbsize)
+            trblk = self.trblk
+        n_layers = cfg["num_of_layers"]
+        fd_slot, usage, dmrs_symlist = self._dmrs_process(fd_slot, usage,
+                                                          slot)
+        usage, n_data_re = self._data_mapping_prepare(usage)
+        g_total = self.qm * n_layers * n_data_re
+        g_seq = self._ulsch_uci_process(
+            torch.as_tensor(trblk, device=self.device).to(torch.int8),
+            g_total, rv, dmrs_symlist)
+        precoded = pusch_symbol_encode(
+            g_seq, self.scramble_seq(g_total),
+            torch.as_tensor(self.precoding_matrix(), device=self.device),
+            self.qm, n_layers, cfg["nTransPrecode"],
+            cfg["ResAlloType1"]["RBSize"] * 12)            # (ant, n_re)
+        return self._data_mapping_commit(precoded, fd_slot, usage), usage
+
+    def _ulsch_uci_process(self, trblk: torch.Tensor, g_total: int, rv: int,
+                           dmrs_symlist) -> torch.Tensor:
+        """(TBSize,) block -> (g_total,) int8 multiplexed coded bits (UCI
+        placeholders -1 / -2 included)."""
+        cfg = self.cfg
+        key = ("uci_mux", g_total, tuple(dmrs_symlist))
+        if key not in self._cache:
+            self._cache[key] = self._uci_mux_plan(g_total, dmrs_symlist)
+        rm, seq, uci = self._cache[key]
+        parts = [torch.zeros(1, dtype=torch.int8, device=self.device)]
+        if cfg["EnableULSCH"] == 1:
+            parts.append(ulsch_encode_batch(
+                trblk[None], self.tbsize, self.qm, self.rate1024,
+                cfg["num_of_layers"], rv, rm["G_ULSCH"])[0])
+        return torch.cat(parts + [uci])[seq]
+
+    def _uci_mux_plan(self, g_total: int, dmrs_symlist):
+        """(rm info, seq (g_total,) gather index into [0, g_ulsch, g_ack,
+        g_csi1, g_csi2] (pusch_uci.multiplex_tags), the coded UCI streams
+        on the device)."""
+        cfg, qm = self.cfg, self.qm
+        rm = self.uci_rm_info(g_total, dmrs_symlist)
+        streams = []
+        for en, nb, bits, e in (("EnableACK", "NumACKBits", "ACKbits",
+                                 "Euci_ack"),
+                                ("EnableCSI1", "NumCSI1Bits", "CSI1bits",
+                                 "Euci_CSI1"),
+                                ("EnableCSI2", "NumCSI2Bits", "CSI2bits",
+                                 "Euci_CSI2")):
+            streams.append(
+                encode_uci_on_ulsch(cfg[bits], cfg[nb], rm[e], qm)
+                if cfg[en] * cfg[nb] > 0 else np.zeros(0, np.int8))
+        seq = multiplex_tags(cfg, g_total, dmrs_symlist, rm, qm)
+        return (rm, torch.tensor(seq, device=self.device),
+                torch.as_tensor(np.concatenate(streams), device=self.device))
+
+    def uci_rm_info(self, g_total: int, dmrs_symlist) -> dict:
+        """The 38.212 6.3.2.4 rate-match split of a slot's g_total coded
+        bits (pusch_uci.get_ulsch_rm_info), with the UL-SCH's C * K bits
+        of the code-block segmentation at g_total (0 without UL-SCH)."""
+        cfg = self.cfg
+        ulsch_size = 0
+        if cfg["EnableULSCH"] == 1:
+            info = sch_plan(self.tbsize, self.rate1024, g_total, self.qm,
+                            cfg["num_of_layers"], None)[3]
+            ulsch_size = info.C * info.K
+        return get_ulsch_rm_info(cfg, dmrs_symlist, ulsch_size, self.qm,
+                                 self.rate1024, g_total)
+
+    def _dmrs_process(self, fd_slot, usage, slot):
+        """Write the precoded DMRS of one slot and mark its REs (and, with
+        2 CDM groups without data, the other comb) in usage."""
+        cfg, dmrs = self.cfg, self.cfg["DMRS"]
+        assert dmrs["DMRSConfigType"] == 1 and dmrs["NrOfDMRSSymbols"] == 1
+        assert dmrs["PUSCHMappintType"] == "A"
+        assert dmrs["dmrs_TypeA_Position"] == "pos2"
+        rb_start = cfg["ResAlloType1"]["RBStart"]
+        rb12 = cfg["ResAlloType1"]["RBSize"] * 12
+        n_sc = 12 * self.prb_size
+        ncdm = dmrs["NumCDMGroupsWithoutData"]
+        symlist = self._dmrs_symlist()
+        vals = torch.as_tensor(self._dmrs_values(slot), device=self.device)
+        for k, sym in enumerate(symlist):
+            base = sym * n_sc + rb_start * 12
+            for m in range(cfg["num_of_layers"]):
+                delta = ((cfg["PortIndexList"][m] - 1000) // 2) % 2
+                usage[m:, base + delta: base + rb12: 2] = \
+                    RE_USAGE["PUSCH-DMRS"]
+                if ncdm == 2:
+                    usage[m:, base + 1 - delta: base + rb12: 2] = \
+                        RE_USAGE["PUSCH-DMRS-RSV"]
+            fd_slot[:, base: base + rb12] = vals[k]
+        return fd_slot, usage, symlist
+
+    def _alloc_columns(self) -> torch.Tensor:
+        """Flat indices of the allocation's REs, symbol by symbol."""
+        cfg = self.cfg
+        n_sc = 12 * self.prb_size
+        rb_start = cfg["ResAlloType1"]["RBStart"]
+        rb12 = cfg["ResAlloType1"]["RBSize"] * 12
+        syms = torch.arange(cfg["StartSymbolIndex"], cfg["StartSymbolIndex"]
+                            + cfg["NrOfSymbols"], device=self.device)
+        return (syms[:, None] * n_sc + rb_start * 12
+                + torch.arange(rb12, device=self.device)).reshape(-1)
+
+    def _data_mapping_prepare(self, usage):
+        """Mark the allocation's empty REs as PUSCH data -> (usage, the
+        number of data REs on the first antenna)."""
+        cols = self._alloc_columns()
+        seg = usage[:, cols]
+        count = int((seg[0] == RE_USAGE["empty"]).sum())
+        seg[seg == RE_USAGE["empty"]] = RE_USAGE["PUSCH-DATA"]
+        usage[:, cols] = seg
+        return usage, count
+
+    def _data_mapping_commit(self, precoded, fd_slot, usage):
+        """Write the data symbols in mapping order (symbol by symbol,
+        subcarriers ascending) where the first antenna's usage is PUSCH
+        data."""
+        cols = self._alloc_columns()
+        cols = cols[usage[0, cols] == RE_USAGE["PUSCH-DATA"]]
+        fd_slot[:, cols] = precoded[:, : cols.numel()]
+        return fd_slot
 
 
 def _attach_rx_methods():
@@ -194,6 +333,8 @@ def _attach_rx_methods():
 
     NrPUSCH.rx_process_batch = pusch_rx.PuschRxMixin.rx_process_batch
     NrPUSCH.rx_batch_prepare = pusch_rx.PuschRxMixin.rx_batch_prepare
+    NrPUSCH._rx_core = pusch_rx.PuschRxMixin._rx_core
+    NrPUSCH.uci_plan = pusch_rx.PuschRxMixin.uci_plan
     NrPUSCH.RX_process = pusch_rx.PuschRxMixin.RX_process
 
 

@@ -1,15 +1,16 @@
-"""Slot-batched RX core for PDSCH (DL-SCH) and PUSCH (UL-SCH).
+"""Slot-batched RX core for PDSCH (DL-SCH) and PUSCH (UL-SCH, UCI).
 
-Port of python_5gtoolbox_tpu/rx/batch_core.py without UCI: LS
-estimation on DMRS REs -> DFT CE (rx/ce_batch.py) -> TO/FO data
-compensation -> linear equalization + max-log demod (for DFT-s-OFDM:
-equalization, the IDFT de-precode per symbol, then demod) -> descramble
--> Er-grouped LDPC rate recovery (+ optional HARQ soft combine) -> LDPC
-decode (the CUDA min-sum kernel on the card) -> TB CRC. The DL and UL
-callers (phy/pdsch_rx.py, phy/pusch_rx.py) differ in their DMRS symbol
-schedule, circular-buffer size (LBRM Ncb or Ncb = N) and sequences. The
-plan-time part runs once in build_batch_rx_core; the returned core() is
-plain tensor code batched over slots.
+Port of python_5gtoolbox_tpu/rx/batch_core.py: LS estimation on DMRS
+REs -> DFT CE (rx/ce_batch.py) -> TO/FO data compensation -> linear
+equalization + max-log demod (for DFT-s-OFDM: equalization, the IDFT
+de-precode per symbol, then demod) -> descramble -> [UCI on PUSCH: the
+38.212 6.2.7 demultiplex as gathers and the UCI decoders] -> Er-grouped
+LDPC rate recovery (+ optional HARQ soft combine) -> LDPC decode (the
+CUDA min-sum kernel on the card) -> TB CRC. The DL and UL callers
+(phy/pdsch_rx.py, phy/pusch_rx.py) differ in their DMRS symbol schedule,
+circular-buffer size (LBRM Ncb or Ncb = N) and sequences. The plan-time
+part runs once in build_batch_rx_core; the returned core() is plain
+tensor code batched over slots.
 """
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ import torch
 
 from python_5gtoolbox_tpu_torch.ops import crc as crc_ops
 from python_5gtoolbox_tpu_torch.ops import ldpc as ldpc_ops
+from python_5gtoolbox_tpu_torch.ops import polar as polar_ops
+from python_5gtoolbox_tpu_torch.ops import smallblock as sb_ops
 from python_5gtoolbox_tpu_torch.ops.modulation import QM_NAME
+from python_5gtoolbox_tpu_torch.ops.polar.segment import polar_cb_segment
 from python_5gtoolbox_tpu_torch.rx import ce_batch
 from python_5gtoolbox_tpu_torch.rx.demod import demodulate
 from python_5gtoolbox_tpu_torch.rx.equalize import (
@@ -46,11 +50,62 @@ def data_re_layout(ports, nl: int, ncdm: int, rb_size: int, ssi: int,
     return dmrs_data_idx, qm * nl * n_data_re
 
 
+def make_uci_decoder(n_bits: int, e_uci: int, qm: int,
+                     llr_limit: float = 20.0):
+    """A decoder of one UCI stream: (S, E) LLRs -> (bits (S, n_bits)
+    int8, ok (S,) bool). Up to 2 bits the ML correlation with the special
+    tables (placeholders contribute nothing), 3-11 bits the Reed-Muller ML
+    decode, above 11 bits CA-SCL polar (L 8, nMax 10, iIL 0, iBIL 1) with
+    the encode side's segmentation. ok is the CRC of each polar block,
+    True for the small-block codes (ML has no CRC). llr_limit is the
+    shortening LLR of the polar rate recovery."""
+    if n_bits <= 2:
+        cb = sb_ops.special_codebook(n_bits, qm)
+        n_sb = cb.shape[1]                 # the special table's length
+        msgs = ((np.arange(2 ** n_bits)[:, None] >> np.arange(n_bits)) & 1
+                ).astype(np.int8)
+
+        def fn(llr):
+            acc = sb_ops.raterecover_smallblock(llr, n_sb)
+            best = torch.argmax(acc @ torch.as_tensor(cb, device=llr.device).T,
+                                dim=-1)
+            bits = torch.as_tensor(msgs, device=llr.device)[best]
+            return bits, torch.ones(llr.shape[0], dtype=torch.bool,
+                                    device=llr.device)
+        return fn
+    if n_bits <= 11:
+        def fn(llr):
+            acc = sb_ops.raterecover_smallblock(llr, 32)
+            return sb_ops.decode_smallblock(acc, n_bits), torch.ones(
+                llr.shape[0], dtype=torch.bool, device=llr.device)
+        return fn
+
+    cbs, C, er = polar_cb_segment(np.zeros(n_bits, np.int8), e_uci)
+    K = cbs.shape[1]
+    crc_len = 6 if (C == 1 and n_bits <= 19) else 11
+    N, _ = polar_ops.gen_n_value(K, er, 10)
+
+    def fn(llr):
+        outs, oks = [], None
+        for m in range(C):
+            rec = polar_ops.polar_raterecover(llr[:, m * er:(m + 1) * er], K,
+                                              N, 1, llr_limit)
+            ck, ok = polar_ops.polar_decode_scl(rec, er, K, 8, 10, 0,
+                                                crc_len=crc_len)
+            outs.append(ck[:, : K - crc_len])
+            oks = ok if oks is None else (oks & ok)
+        bits = torch.cat(outs, dim=1)
+        if C == 2 and n_bits % 2 == 1:
+            bits = bits[:, 1:]             # drop the front zero pad
+        return bits, oks
+    return fn
+
+
 def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
                         ncdm, scs, n_sc, nr, qm, tbsize, rate1024,
                         tbs_lbrm, rv, algo, ldpc_cfg, ce_config,
                         symlist, scaling, harq=False,
-                        transform_precode=False):
+                        transform_precode=False, uci_plan=None):
     """-> (core(rx (S, Nr, 14*n_sc) complex64, dmrs (S, nsym, rb*6)
     complex64, scr_sign (G,) float32[, llr_prev (S, C, N)]) ->
     (err (S,) int8, tbblk (S, A) int8[, llr_dns (S, C, N)]), G).
@@ -60,7 +115,11 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
     so that rv-cycled transmissions can be chained. tbs_lbrm None means
     Ncb = N (UL-SCH). transform_precode: DFT-s-OFDM, whose whole-symbol
     DFT blocks need 1 layer, no data on DMRS symbols (NumCDM 2) and a
-    linear equalizer that gives per-RE symbol estimates.
+    linear equalizer that gives per-RE symbol estimates. uci_plan (UCI on
+    PUSCH): dict(ulsch_pos=, streams=[(name, positions, n_bits)]), the
+    demultiplex positions of phy/pusch_rx.py:data_control_demux_maps; the
+    UL-SCH is then the demuxed subset of G_ULSCH bits, and the return
+    gains uci = {name: (bits (S, n_bits) int8, ok (S,) bool)}.
     """
     modtype = QM_NAME[qm]
     if transform_precode:
@@ -70,8 +129,15 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
             f"transform precoding needs a linear equalizer, got {algo}"
     dmrs_data_idx, G = data_re_layout(ports, nl, ncdm, rb_size, ssi, nsym,
                                       symlist, qm)
+    g_sch = G
+    uci_decs = []
+    if uci_plan is not None:
+        g_sch = int(uci_plan["ulsch_pos"].size)
+        uci_decs = [(name, np.asarray(pos, np.int64),
+                     make_uci_decoder(n_bits, int(pos.size), qm))
+                    for name, pos, n_bits in uci_plan["streams"]]
     tb_poly, B, bgn, info, ncb, er_list = ldpc_ops.sch_plan(
-        tbsize, rate1024, G, qm, nl, tbs_lbrm)
+        tbsize, rate1024, g_sch, qm, nl, tbs_lbrm)
     rs_info = dict(RSSymMap=list(symlist), RE_distance=4,
                    NumCDMGroupsWithoutData=ncdm, scs=scs)
     A = tbsize
@@ -143,6 +209,13 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
             llr = equalize_and_demod_traced(y, h, cv, modtype, algo)
         llr = llr.reshape(s, G) * scr_sign[None, :]
 
+        # ---- data/control demultiplex + UCI decode
+        uci = {}
+        if uci_plan is not None:
+            for name, pos, dec in uci_decs:
+                uci[name] = dec(llr[:, torch.as_tensor(pos, device=dev)])
+            llr = llr[:, torch.as_tensor(uci_plan["ulsch_pos"], device=dev)]
+
         # ---- de-rate-match (Er groups) -> (S, C, N)
         grps = []
         g_off = 0
@@ -172,6 +245,8 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
         tbblkandcrc = cb_bits.reshape(s, -1)[:, :B]
         err = crc_ops.crc_check(tbblkandcrc, tb_poly)
         outs = (err, tbblkandcrc[:, :A])
-        return outs + (llr_dns,) if harq else outs
+        if harq:
+            outs += (llr_dns,)
+        return outs + (uci,) if uci_plan is not None else outs
 
     return core, G

@@ -8,8 +8,10 @@ filters.tx_lowphy_duc), the fading channel with AWGN, the RX filter and
 low-PHY, then one slot-batched RX call per equalizer, CP-OFDM or
 DFT-s-OFDM. Everything stays on the device; the decode flags of all
 points come back in one transfer at the end (the SNR loop is
-pdsch_throughput.run_sweep). The per-slot RX (use_batch=False) and UCI
-decoding are not ported (Queue A items 4 and 2).
+pdsch_throughput.run_sweep). The per-slot RX (use_batch=False), to
+which the JAX sweep sends every UCI configuration, is not ported (Queue
+A item 4): a UCI configuration or decode_uci=True raises. (The batched
+RX decodes UCI on its own: NrPUSCH.rx_process_batch.)
 """
 from __future__ import annotations
 
@@ -134,8 +136,8 @@ def run_pusch_throughput(carrier_config, pusch_config, chan_cfg,
             and not decode_uci
     if not use_batch or decode_uci:
         raise NotImplementedError("only the slot-batched PUSCH RX without "
-                                  "UCI is ported (per-slot RX: Queue A item "
-                                  "4; UCI: item 2)")
+                                  "UCI is ported in the sweep (the per-slot "
+                                  "RX that UCI sweeps take: Queue A item 4)")
     return run_sweep("PUSCH", pusch_before_ceq_processing, carrier_config,
                      pusch_config, chan_cfg, snr_db_list, ceq_algo_list,
                      n_slots, ce_config, ldpc_config, seed, device, states,

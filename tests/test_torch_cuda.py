@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
 plain PyTorch version (the two LDPC kernels in every schedule and check
-node), and the sweeps through them.
+node), the sweeps through them, and the plain-PyTorch polar decoder (a
+CUDA graph on the card), its study and UCI on PUSCH against the CPU.
 
 Marked `cuda`; every test skips (from the `cuda_device` fixture) where
 torch sees no CUDA device. On the card (whose Python has no jax, which
@@ -637,3 +638,72 @@ def test_decoder_study_on_card_matches_cpu(cuda_device):
     assert kernels.LAUNCHES["ldpc_minsum_packed"] == 4
     assert got == study.run_ldpc_simulation(*args, n_trials=64, device="cpu",
                                             schedule="layered")
+
+
+# ---------------------------------------------------------------------------
+# Polar decoder and UCI on PUSCH (plain PyTorch on the card; no kernel of
+# their own): the card's decode equals the host's, and the UCI path runs
+# the FIR and LDPC kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,E,L,nmax,iil,clen,pad", [
+    (164, 512, 8, 9, 1, 24, 0),       # bench_polar_scl: N 512, CRC24C
+    (512, 1024, 8, 10, 0, 11, 0),     # N 1024, UL
+    (64, 432, 8, 9, 1, 24, 1)])       # PDCCH candidates, per-row RNTI
+def test_polar_decoder_on_card_matches_cpu(cuda_device, K, E, L, nmax, iil,
+                                           clen, pad):
+    from python_5gtoolbox_tpu_torch.ops import polar
+    N, _ = polar.gen_n_value(K, E, nmax)
+    rng = np.random.default_rng(K)
+    llr = torch.as_tensor((rng.standard_normal((12, N)) * 2 + 1.5)
+                          .astype(np.float32))
+    rnti = torch.as_tensor(rng.integers(0, 2 ** 16, 12)) if pad else 0
+    ref = polar.polar_decode_scl(llr, E, K, L, nmax, iil, clen, pad, rnti)
+    # the first call captures the CUDA graph; later calls replay it, also
+    # after other decodes have reused the memory around it
+    for rep in range(3):
+        got = polar.polar_decode_scl(
+            llr.to(cuda_device), E, K, L, nmax, iil, clen, pad,
+            rnti.to(cuda_device) if pad else 0)
+        assert torch.equal(got[0].cpu(), ref[0])
+        assert torch.equal(got[1].cpu(), ref[1])
+        polar.polar_decode_scl(torch.randn(5, N, device=cuda_device), E, K,
+                               L, nmax, iil, clen, 0, 0)
+
+
+def test_polar_study_on_card_matches_cpu(cuda_device):
+    from python_5gtoolbox_tpu_torch.sim import polar_decoder as study
+    args = (study.K, study.E, study.N_MAX, study.I_IL, study.CRC_LEN,
+            ["SC", "SCL"], [8], [1.0, 2.5], None)
+    got = study.run_polar_simulation(*args, n_trials=64, device=cuda_device,
+                                     verbose=False)
+    assert got == study.run_polar_simulation(*args, n_trials=64,
+                                             device="cpu", verbose=False)
+
+
+def test_uci_on_pusch_on_card(cuda_device):
+    """The CP-OFDM UL sweep's configuration with ACK 2 + CSI1 5 bits:
+    per-slot TX through gen_ul_waveform, fading channel at 25 dB, batched
+    UCI RX; every TB and UCI stream decodes to what was sent, through
+    both kernels."""
+    from python_5gtoolbox_tpu_torch.interop import state_from_numpy
+    from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+    from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim
+    carrier, pusch, chan, ce, ldpc = usim.bench_link_level_pusch_tp_config()
+    pusch.update(nTransPrecode=0, EnableACK=1, NumACKBits=2, ACKbits=[1, 0],
+                 EnableCSI1=1, NumCSI1Bits=5, CSI1bits=[1, 0, 1, 1, 0])
+    trblks = np.random.default_rng(1).integers(0, 2, (4, 2600), np.int8)
+    kernels.reset_launches()
+    obj, slots, rx_fd = usim.pusch_before_ceq_processing(
+        carrier, pusch, chan, -25.0, 4, seed=1, device=cuda_device,
+        state=state_from_numpy(trblks=trblks, device=cuda_device))
+    stack = rx_fd.reshape(carrier["Nr"], 4, -1).transpose(0, 1)
+    ok, tbblk, uci = obj.rx_process_batch(
+        stack, slots, {"algo": "MMSE-IRC"}, ldpc,
+        sim._ce_config(ce, chan, carrier["scs"]))
+    assert ok.all() and np.array_equal(tbblk, trblks)
+    for name, sent in (("ack", [1, 0]), ("csi1", [1, 0, 1, 1, 0])):
+        assert uci[name][1].all()
+        np.testing.assert_array_equal(uci[name][0], np.tile(sent, (4, 1)))
+    assert kernels.LAUNCHES["banded_fir"] == 2
+    assert kernels.LAUNCHES["ldpc_minsum_flooded"] == 1

@@ -56,7 +56,8 @@ DATA_FILES = ["configs/default_dl_carrier_config.json",
               "configs/default_ul_carrier_config.json",
               "configs/default_ul_waveform_config.json",
               "data/ldpc_basegraphs.npz",
-              "data/lowpapr_phi.npz"]
+              "data/lowpapr_phi.npz",
+              "data/polar_reliability.npz"]
 
 
 @pytest.mark.parametrize("rel", DATA_FILES)
@@ -217,6 +218,10 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     assert PORT / "sim" / "ldpc_decoder.py" in files
+    for rel in ("ops/polar/decode.py", "ops/polar/segment.py",
+                "ops/smallblock.py", "phy/pusch_uci.py",
+                "sim/polar_decoder.py"):
+        assert PORT / rel in files, rel
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad
 

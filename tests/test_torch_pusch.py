@@ -195,17 +195,23 @@ def test_ul_waveform_matches_jax(nant, return_device):
 
 
 def test_unported_entry_points_raise():
+    """SRS and PUCCH in gen_ul_waveform are not ported; a UCI config is
+    not batch-capable (it takes the per-slot branch, held against the JAX
+    package in tests/test_torch_pusch_uci.py), and trblks= goes with one
+    PUSCH only."""
     carrier, cfg, wf = _golden_wave_config()
     ch = tpusch.NrPUSCH(carrier, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         tul.gen_ul_waveform(wf, carrier, [ch], nrSrs_list=[object()])
     with pytest.raises(NotImplementedError):
-        ch.process(None, None, 0)
+        tul.gen_ul_waveform(wf, carrier, [ch],
+                            nrPucchFormat1_list=[object()])
     uci = tpusch.NrPUSCH(carrier, dict(cfg, EnableACK=1, NumACKBits=2),
                          device="cpu")
     assert not uci.tx_batch_supported()
-    with pytest.raises(NotImplementedError):
-        tul.gen_ul_waveform(wf, carrier, [uci])
+    with pytest.raises(ValueError):
+        tul.gen_ul_waveform(wf, carrier, [uci, ch], trblks=np.zeros(
+            (2, ch.tbsize), np.int8))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpusch.NrPUSCH(carrier, cfg)

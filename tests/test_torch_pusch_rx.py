@@ -115,9 +115,10 @@ def test_rx_refuses_what_is_not_ported():
     rx = np.zeros((1, 2, 14 * ch.prb_size * 12), np.complex64)
     with pytest.raises(AssertionError):
         ch.rx_process_batch(rx, [0], {"algo": "ML"}, LDPC, CE)
+    # UCI on PUSCH is CP-OFDM only in the batched RX, as in the JAX package
     uci = tpusch.NrPUSCH(carrier, dict(pusch, EnableACK=1, NumACKBits=2),
                          device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(AssertionError):
         uci.rx_process_batch(rx, [0], {"algo": "MMSE-IRC"}, LDPC, CE)
     with pytest.raises(NotImplementedError):
         ch.RX_process(rx[0], 0)
