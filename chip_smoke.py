@@ -34,6 +34,13 @@ then drives the port's paths through its entry points:
     bench.py's three shapes and the polar decoder BLER study
     (scripts/sim_polar_decoder.py), equal to the CPU's results (plain
     PyTorch: the JAX package has no Pallas kernel for them);
+  * the other DL channels and the NR-FR1 test models: the five test
+    models at full width (scs 30 / BW 100 / TDD, 40 slots at 122.88 Msps:
+    per-slot SSB / CSI-RS / PDCCH / PDSCH into one frame grid, then the
+    287-tap FIR), sim/gen_nr_testmodel.py at its own constants, all four
+    DL channels together at 245.76 Msps (flat fused FIR + halfband, then
+    one halfband stage), the standalone SSB waveform and the CSI report
+    (plain PyTorch), each held against the plain chain or the CPU;
   * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
     400 codewords per SNR point, six decoder settings) and the
     bit-flipping study's decode, and the decoder bench's shape
@@ -70,6 +77,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,13 +93,18 @@ from python_5gtoolbox_tpu_torch.interop import state_from_numpy  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops import filters, ofdm, polar  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy import csirs_report  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy.csirs import NrCSIRS  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import polar_decoder as pstudy  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim.profile_sweep import SyncStageTimer  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tm_script  # noqa: E402
 from python_5gtoolbox_tpu_torch.utils.config import (  # noqa: E402
     get_default_config, merged)
 from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (  # noqa: E402
@@ -198,6 +211,10 @@ def phase_fir(rng) -> dict:
              # the UL sweep's TX FIR (1 antenna; its RX, 2 antennas, is
              # the 4x307200 shape above)
              ((2, 307200), filters.fir_coeff(30, 20), "UL TX FIR, BW 20",
+              ("same",)),
+             # the full-width test models' FIR (scs 30 / BW 100, 40 slots
+             # at 122.88 Msps, 1 antenna)
+             ((2, 2457600), filters.fir_coeff(30, 100), "TM FIR, BW 100",
               ("same",))]
     for shape, taps, label, modes in cases:
         p, t = shape
@@ -1246,7 +1263,8 @@ def _gen_waveform(carrier, pdsch, n_slots, seed, kernel, dm=None):
     def run():
         nr_pdsch = Pdsch(pdsch, carrier, rng=np.random.default_rng(seed),
                          device=DEV)
-        return dl_wf.gen_dl_waveform(wf, carrier, [nr_pdsch], Dm=dm)
+        return dl_wf.gen_dl_waveform(wf, carrier, nrPdsch_list=[nr_pdsch],
+                                      Dm=dm)
     kernels.reset_launches()
     fd, td, dl, _ = run()
     torch.cuda.synchronize()
@@ -1329,6 +1347,229 @@ def phase_waveforms() -> dict:
     return out
 
 
+TM_LIST = ["NR-FR1-TM1.1", "NR-FR1-TM2", "NR-FR1-TM2a", "NR-FR1-TM3.1",
+           "NR-FR1-TM3.1a"]
+
+
+def _tm_run(tm, device, seed=0, count_ops=False):
+    """gen_dl_waveform of one test model at full width (scs 30, BW 100,
+    TDD, cell 1, 3500 MHz: 40 slots at 122.88 Msps) on device, payloads
+    from seed -> (fd, td, dl, PDSCH encodes, ATen operations or None)."""
+    wf, carrier, ssb, csirs, coreset, ss, pdcch, pdsch = gen_nr_tm_cfg(
+        30, 100, "TDD", tm, 1, 3500.0)
+    lists = dl_wf.gen_dl_channel_list(wf, carrier, ssb, pdcch, ss, coreset,
+                                      csirs, pdsch, seed=seed, device=device)
+    n_enc = sum(ch.is_active_slot(s) for ch in lists[1]
+                for s in range(wf["numofslots"]))
+    if not count_ops:
+        return (*dl_wf.gen_dl_waveform(wf, carrier, *lists)[:3], n_enc, None)
+    with _OpCount() as ops:
+        out = dl_wf.gen_dl_waveform(wf, carrier, *lists)
+    return (*out[:3], n_enc, ops.n)
+
+
+def _warm_ms(fn, reps: int = 3) -> list:
+    """Wall ms of reps synchronised calls of fn (the host-bound paths'
+    spread shows between them)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_testmodels() -> dict:
+    """The five NR-FR1 test models at full width (gen_nr_tm_cfg at scs 30
+    / BW 100 / TDD / cell 1 / 3500 MHz: 40 slots, 1 antenna, 122.88 Msps)
+    through gen_dl_channel_list and gen_dl_waveform on the card, payloads
+    from seed 0: per TM exactly one banded_fir launch (the 287-tap FIR on
+    2x2457600 planes) and none of any other kernel, dl within 1.2e-4 of
+    banded_fir_plain on the returned td and the median warm wall ms of
+    three more runs; then, after all five (the CPU's worker threads would share the
+    host with the card runs' launches), fd within 1e-5 of the same run on
+    the CPU, which also counts the ATen operations. Returns the launches,
+    summed over the TMs."""
+    total, rows, fds = {}, [], {}
+    fir = filters.fir_coeff(30, 100)
+    for tm in TM_LIST:
+        kernels.reset_launches()
+        fd, td, dl, n_enc, _ = _tm_run(tm, DEV)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches["banded_fir"] != 1 or sum(launches.values()) != 1:
+            raise AssertionError(f"test model {tm} launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        ref = filters.banded_fir_plain(torch.cat([td.real, td.imag]), fir,
+                                       "same")
+        err = _check("testmodel", tm, dl, torch.complex(ref[:1], ref[1:]))
+        runs_ms = _warm_ms(lambda: _tm_run(tm, DEV))
+        warm_ms = float(np.median(runs_ms))
+        fds[tm] = fd.cpu()
+        rows.append(dict(tm=tm, fd_shape=list(fd.shape),
+                         td_shape=list(td.shape), dl_shape=list(dl.shape),
+                         launches=launches, max_abs_err=err,
+                         warm_ms=warm_ms, warm_runs_ms=runs_ms,
+                         msamples_per_s=dl.shape[1] / warm_ms / 1e3,
+                         pdsch_encodes=n_enc))
+        del fd, td, dl, ref
+    for row in rows:
+        fd_c, _, _, _, n_ops = _tm_run(row["tm"], "cpu", count_ops=True)
+        fd_err = (fds[row["tm"]] - fd_c).abs().max().item()
+        if not fd_err <= 1e-5 or not (fd_c != 0).any():
+            raise AssertionError(f"test model {row['tm']}: card fd against "
+                                 f"the CPU's: {fd_err}")
+        row.update(fd_max_abs_err_vs_cpu=fd_err, aten_ops=n_ops,
+                   aten_ops_per_slot=n_ops / 40)
+        emit("testmodels", **row)
+    SUMMARY["testmodel_warm_ms"] = {r["tm"]: r["warm_ms"] for r in rows}
+    return total
+
+
+def phase_testmodel_script() -> dict:
+    """sim/gen_nr_testmodel.py's main at its own constants (scs 30, BW 40,
+    TDD: 20 slots at 61.44 Msps, the 143-tap FIR on 2x1228800 planes)
+    into a temporary directory on the card, then on the CPU: main
+    returns (rc 0) with five files each, one banded_fir launch per TM,
+    and every waveform within 1.2e-4 of the CPU's (the plain chain).
+    Returns the card run's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for key, dev in (("card", str(DEV)), ("cpu", "cpu")):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            # main returns (rc 0 of `python -m ...`) or raises
+            files = tm_script.main(["--device", dev, "--out-dir",
+                                    f"{tmp}/{key}"])
+            torch.cuda.synchronize()
+            runs[key] = dict(files=files, launches=dict(kernels.LAUNCHES),
+                             wall_s=time.perf_counter() - t0)
+        card, cpu = runs["card"], runs["cpu"]
+        if len(card["files"]) != 5 or len(cpu["files"]) != 5:
+            raise AssertionError(f"gen_nr_testmodel: {runs}")
+        if card["launches"]["banded_fir"] != 5 \
+                or sum(card["launches"].values()) != 5:
+            raise AssertionError(f"gen_nr_testmodel launches "
+                                 f"{card['launches']}")
+        errs = []
+        for a, b in zip(card["files"], cpu["files"]):
+            with np.load(a) as za, np.load(b) as zb:
+                errs.append(float(np.abs(za["dl_waveform"]
+                                         - zb["dl_waveform"]).max()))
+                shape = za["dl_waveform"].shape
+        if not max(errs) < FIR_TOL:
+            raise AssertionError(f"gen_nr_testmodel card against CPU: {errs}")
+    emit("testmodel_script", rc=0, files=len(card["files"]),
+         dl_shape=list(shape), launches=card["launches"],
+         max_abs_err_vs_cpu=max(errs), wall_s=card["wall_s"],
+         cpu_wall_s=cpu["wall_s"])
+    return card["launches"]
+
+
+def phase_dl_multichannel_245() -> dict:
+    """SSB + CSI-RS + PDCCH + PDSCH together (sim/gen_nr_testmodel.py:
+    dl_multichannel_config: 2 antennas, scs 30 / BW 40, 20 slots,
+    245.76 Msps) on the card: exactly one fir_up2_fused (4x614400 in,
+    143 + 55 taps) and one banded_fir up2 (4x1228800 in), dl within
+    1.2e-4 of fir_up2_fused_plain then banded_fir_plain on the returned
+    td; the median warm wall ms of three more runs. Returns the
+    launches."""
+    kw = tm_script.dl_multichannel_config(n_slots=20, samplerate_in_mhz=245.76)
+    wf, carrier = kw.pop("waveform_config"), kw.pop("carrier_config")
+
+    def run():
+        lists = dl_wf.gen_dl_channel_list(wf, carrier, **kw, seed=4,
+                                          device=DEV)
+        return dl_wf.gen_dl_waveform(wf, carrier, *lists)
+    kernels.reset_launches()
+    fd, td, dl, _ = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["fir_up2_fused"] != 1 or launches["banded_fir"] != 1 \
+            or sum(launches.values()) != 2:
+        raise AssertionError(f"multi-channel waveform launches {launches}")
+    hb = filters.halfband_coeff()
+    ref = filters.fir_up2_fused_plain(torch.cat([td.real, td.imag]),
+                                      filters.fir_coeff(30, 40), hb)
+    ref = filters.banded_fir_plain(ref, hb, "up2")
+    err = _check("dl_multichannel_245", "SSB+CSI-RS+PDCCH+PDSCH", dl,
+                 torch.complex(ref[:2], ref[2:]))
+    runs_ms = _warm_ms(run)
+    emit("dl_multichannel_245", n_slots=20, nant=2,
+         td_shape=list(td.shape), dl_shape=list(dl.shape),
+         launches=launches, max_abs_err=err,
+         warm_ms=float(np.median(runs_ms)), warm_runs_ms=runs_ms)
+    return launches
+
+
+def phase_ssb_waveform_gen() -> None:
+    """NrSSB.waveform_gen at 245.76 Msps (ifftsize 8192, the
+    ssb_waveform_hifs case: 2 antennas, 3840 MHz) over a frame of 20
+    slots on the card: no kernel launch, card within 1e-5 of the CPU."""
+    carrier = merged(get_default_config("dl_carrier"),
+                     dict(num_of_ant=2, carrier_frequency_in_mhz=3840))
+    wf = dict(samplerate_in_mhz=245.76, numofslots=20, startSFN=0,
+              startslot=0)
+    kernels.reset_launches()
+    td = NrSSB(carrier, get_default_config("ssb"),
+               device=DEV).waveform_gen(wf)
+    torch.cuda.synchronize()
+    launches = sum(kernels.LAUNCHES.values())
+    td_c = NrSSB(carrier, get_default_config("ssb"),
+                 device="cpu").waveform_gen(wf)
+    err = (td.cpu() - td_c).abs().max().item()
+    if launches or not err <= 1e-5 or not td_c.abs().max() > 0:
+        raise AssertionError(f"ssb waveform_gen: {launches} launches, "
+                             f"card against CPU {err}")
+    ms = call_ms(lambda: NrSSB(carrier, get_default_config("ssb"),
+                               device=DEV).waveform_gen(wf), 3)
+    emit("ssb_waveform_gen", td_shape=list(td.shape), ifftsize=8192,
+         max_abs_err_vs_cpu=err, peak=td_c.abs().max().item(), ms=ms)
+
+
+def phase_csirs_report() -> None:
+    """One CSI-RS slot with 4 ports (row 4, fd-CDM2, 52 RBs of scs 30 /
+    BW 40) through a rank-1 channel built from a Type-I codebook precoder
+    (i11 2, i2 1; 4 RX) plus AWGN at 0 dB; NrCSIRSReport with subband CQI
+    and PMI on the card: no kernel launch, RI, PMI and CQI equal to the
+    CPU's, and the precoder recovered."""
+    carrier = merged(get_default_config("dl_carrier"), dict(num_of_ant=4))
+    csirs = merged(get_default_config("csirs"), dict(
+        frequencyDomainAllocation=dict(row=4, bitstring="001"), nrofPorts=4,
+        cdm_type="fd-CDM2", density="one", nrofRBs=52, periodicity=10))
+    rcfg = merged(get_default_config("csirs_report"), {"SubbandSize ": 8})
+    w, meta = csirs_report.type1_sp_codebook(4, 1)
+    rng = np.random.default_rng(6)
+    g = rng.normal(size=(4, 1)) + 1j * rng.normal(size=(4, 1))
+    h = (g @ w[9].conj().T).astype(np.complex64)            # (4 RX, 4)
+    n_sc = 12 * 106
+    tx = torch.zeros((4, 14 * n_sc), dtype=torch.complex64)
+    NrCSIRS(carrier, csirs).process(tx, np.zeros((4, 14 * n_sc), np.int8),
+                                    0, 0)
+    y = h @ tx.numpy() + (np.sqrt(0.5) * (
+        rng.normal(size=(4, 14 * n_sc))
+        + 1j * rng.normal(size=(4, 14 * n_sc)))).astype(np.complex64)
+    kernels.reset_launches()
+    rep = {dev: csirs_report.NrCSIRSReport(carrier, csirs, rcfg, n_rx=4,
+                                           device=dev).report(y, 0, 0)
+           for dev in (DEV, "cpu")}
+    torch.cuda.synchronize()
+    card, cpu = rep[DEV], rep["cpu"]
+    keys = ("RI", "PMI", "CQI", "subband_CQI")
+    if sum(kernels.LAUNCHES.values()) \
+            or any(card[k] != cpu[k] for k in keys) or card["RI"] != 1 \
+            or card["PMI"]["i11"] != meta[9]["i11"] \
+            or set(card["PMI"]["i2"]) != {meta[9]["i2"]}:
+        raise AssertionError(f"csirs_report card {card} != CPU {cpu}")
+    ms = call_ms(lambda: csirs_report.NrCSIRSReport(
+        carrier, csirs, rcfg, n_rx=4, device=DEV).report(y, 0, 0), 3)
+    emit("csirs_report", **{k: card[k] for k in keys},
+         wideband_se=card["wideband_SE"], cpu_wideband_se=cpu["wideband_SE"],
+         ms=ms)
+
+
 def main() -> None:
     rng = np.random.default_rng(2024)
     phase_device()
@@ -1353,6 +1594,13 @@ def main() -> None:
                        waveform_ul_uci=phase_waveform_ul_uci())
     phase_polar()
     phase_polar_study()
+    # the other DL channels and the test models: per phase, the launches
+    # of each kernel in its run
+    dl_launches = dict(testmodels=phase_testmodels(),
+                       testmodel_script=phase_testmodel_script(),
+                       dl_multichannel_245=phase_dl_multichannel_245())
+    phase_ssb_waveform_gen()
+    phase_csirs_report()
     for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
                  "ldpc_minsum_layered_fast"):
         rows[name] = bench_rows[name]
@@ -1365,8 +1613,9 @@ def main() -> None:
     # in their gen_dl_waveform calls (summed: 2 Dm waveforms, 3 carriers
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
-    # decoder bench through ldpc_decode; ul_launches: the uplink phases
-    # that launched the kernel, with their counts
+    # decoder bench through ldpc_decode; ul_launches and dl_launches: the
+    # uplink phases and the multi-channel DL phases that launched the
+    # kernel, with their counts
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
@@ -1392,6 +1641,9 @@ def main() -> None:
                           library_ms=row["library_ms"],
                           ul_launches={ph: n[name] for ph, n in
                                        ul_launches.items()
+                                       if n.get(name, 0) > 0},
+                          dl_launches={ph: n[name] for ph, n in
+                                       dl_launches.items()
                                        if n.get(name, 0) > 0}))
     emit("summary", **SUMMARY)
     print(nvidia_smi(), flush=True)

@@ -12,6 +12,11 @@ takes that run's draws as numpy arrays and passes them here:
   taps   per path (N, Nr, Nt) complex -> NrChannelModel.filter(taps=)
   noise  (Nr, N) complex, or a (real, imag) pair of unit normals
                                      -> NrChannelModel.filter(noise=)
+
+For the multi-channel DL waveform (the test models), pin_payloads draws
+one random payload per PDSCH (a transport block) and per PDCCH (the DCI
+bits) and writes each into its config's data_source: both packages'
+Pdsch and Pdcch then send exactly those bits in every allocated slot.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from python_5gtoolbox_tpu_torch import resolve_device
+from python_5gtoolbox_tpu_torch.phy.tbsize import gen_tbsize
 
 
 def state_from_numpy(trblks=None, taps=None, noise=None, device=None
@@ -39,4 +45,21 @@ def state_from_numpy(trblks=None, taps=None, noise=None, device=None
             noise = re + 1j * im
         out["noise"] = torch.as_tensor(np.array(noise, np.complex64),
                                        device=dev)
+    return out
+
+
+def pin_payloads(rng: np.random.Generator, pdsch_configs=(),
+                 pdcch_configs=()) -> dict:
+    """Draw a transport block (TBSize bits) per PDSCH config and the DCI
+    bits (NumDCIBits) per PDCCH config from rng and write each, as a list
+    of ints, into the config's data_source (in place) -> dict(trblks=,
+    dcibits=) of the numpy draws."""
+    out = dict(trblks=[], dcibits=[])
+    for key, cfgs, size in (
+            ("trblks", pdsch_configs, lambda c: gen_tbsize(c)[0]),
+            ("dcibits", pdcch_configs, lambda c: c["NumDCIBits"])):
+        for cfg in cfgs:
+            bits = rng.integers(0, 2, size(cfg)).astype(np.int8)
+            cfg["data_source"] = bits.tolist()
+            out[key].append(bits)
     return out

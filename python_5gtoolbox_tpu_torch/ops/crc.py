@@ -138,3 +138,11 @@ def crc_check(blkandcrc: torch.Tensor, poly: str, mask=0) -> torch.Tensor:
     rem = crc_compute(blkandcrc[..., :-L], poly, mask)
     neq = rem != blkandcrc[..., -L:].to(torch.int8)
     return neq.any(dim=-1).to(torch.int8)
+
+
+def crc_encode_np(bits, poly: str, mask: int = 0) -> np.ndarray:
+    """Host helper: (..., A) 0/1 numpy bits -> (..., A+L) int8 numpy with
+    the CRC appended (crc_encode on a CPU tensor; the RNTI mask as in
+    crc_compute)."""
+    return crc_encode(torch.as_tensor(np.asarray(bits, np.int8)), poly,
+                      mask).numpy()

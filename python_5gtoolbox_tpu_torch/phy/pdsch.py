@@ -1,11 +1,18 @@
 """PDSCH transmit chain: DLSCH coding, modulation, DMRS, RE mapping.
 
-Port of python_5gtoolbox_tpu/phy/pdsch.py, slot-batched TX only
-(tx_grid_batch): TB-CRC -> code-block segmentation -> LDPC encode -> LBRM
-rate match -> scramble -> QAM -> layer map -> precode -> grid, batched
-over slots and code blocks, with the grid composed from static slices.
-Transport blocks come from an explicit numpy Generator, or are passed in
-(trblks=) to reproduce another run's draws.
+Port of python_5gtoolbox_tpu/phy/pdsch.py. Two TX paths:
+
+* tx_grid_batch: TB-CRC -> code-block segmentation -> LDPC encode -> LBRM
+  rate match -> scramble -> QAM -> layer map -> precode -> grid, batched
+  over slots and code blocks, with the grid composed from static slices;
+* process, one slot into a grid shared with the other DL channels (the
+  test models): the DMRS around SSB PRBs and the data on the REs the
+  usage map leaves free, so G follows the slot; the same encode at that
+  G, its symbols written on the device.
+
+Transport blocks come from the configuration's data_source, from an
+explicit numpy Generator, or are passed in (trblks= / trblk=) to
+reproduce another run's draws.
 """
 from __future__ import annotations
 
@@ -20,7 +27,9 @@ from python_5gtoolbox_tpu_torch.ops.modulation import (QM_NAME, modulate,
                                                       modulate_np)
 from python_5gtoolbox_tpu_torch.ops.prbs import gen_prbs_np
 from python_5gtoolbox_tpu_torch.phy import tbsize as tbs_mod
-from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
+from python_5gtoolbox_tpu_torch.phy.grid import write_res
+from python_5gtoolbox_tpu_torch.utils.numerology import (RE_USAGE,
+                                                         carrier_prb_size)
 
 
 def dlsch_encode(trblk: torch.Tensor, tbsize: int, qm: int,
@@ -108,6 +117,11 @@ class SlotBatchTx:
     prb_size, tbsize, qm, rate1024, rvidx = -1, trblk = None and _cache =
     {}, and gives precoding_matrix(), dmrs_seq(slot, sym), scramble_cinit()
     and encode_symbols(trb, rvs, prec)."""
+
+    def is_active_slot(self, slot: int) -> bool:
+        """True when the configuration allocates this slot."""
+        return (slot % self.cfg["period_in_slot"]) in \
+            self.cfg["allocated_slots"]
 
     def getnextrv(self) -> int:
         rvlist = self.cfg["rv"]
@@ -212,7 +226,7 @@ class SlotBatchTx:
 
         active_idx, rvs, drawn = [], [], []
         for i, slot in enumerate(slot_list):
-            if (slot % cfg["period_in_slot"]) not in cfg["allocated_slots"]:
+            if not self.is_active_slot(slot):
                 continue
             rvs.append(self.getnextrv())
             if trblks is None and (self.rvidx == 0 or self.trblk is None):
@@ -260,7 +274,7 @@ class SlotBatchTx:
 
 
 class Pdsch(SlotBatchTx):
-    """PDSCH channel object (slot-batched TX + planning; the RX methods
+    """PDSCH channel object (slot-batched and per-slot TX; the RX methods
     live in phy/pdsch_rx.py).
 
     rng: numpy Generator for transport blocks (default: seeded with 0);
@@ -308,6 +322,114 @@ class Pdsch(SlotBatchTx):
             self.tbs_lbrm, G))
         return pdsch_symbol_encode(g_seq, self.scramble_seq(g_seq.shape[1]),
                                    prec, self.qm, n_layers)
+
+    # -- per-slot TX into a shared grid (the multi-channel waveform) --------
+    def process(self, fd_slot: torch.Tensor, usage: np.ndarray, slot: int):
+        """One slot into a shared grid, the reference's protocol: fd_slot
+        (ant, 14*n_sc) complex64 on self.device, usage the host (ant,
+        14*n_sc) int8 map of what the slot's earlier channels (SSB,
+        CSI-RS, PDCCH) took. Both are written in place and returned;
+        gated slots are left as they are. rv cycling and block draws
+        follow tx_grid_batch.
+
+        The DMRS goes in with one indexed write (PRBs that carry an SSB
+        skipped); the data REs are the allocation's empty REs, so G and
+        the rate matching follow the slot. The coded symbols (dlsch_encode
+        at this G, then pdsch_symbol_encode) stay on the device and go in
+        with one indexed write whose positions come from the usage map.
+        """
+        if not self.is_active_slot(slot):
+            return fd_slot, usage
+        rv = self.getnextrv()
+        if self.rvidx == 0 or self.trblk is None:
+            self.trblk = self.get_trblk(self.tbsize)
+        n_layers = self.cfg["num_of_layers"]
+        self._dmrs_process(fd_slot, usage, slot)
+        n_data_re = self._data_mapping_prepare(usage)
+        G = self.qm * n_layers * n_data_re
+        dev = self.device
+        g_seq = dlsch_encode(
+            torch.as_tensor(self.trblk, device=dev)[None],
+            self.tbsize, self.qm, self.rate1024, n_layers, rv,
+            self.tbs_lbrm, G)[0]
+        if "prec" not in self._cache:
+            self._cache["prec"] = torch.as_tensor(self.precoding, device=dev)
+        precoded = pdsch_symbol_encode(g_seq, self.scramble_seq(G),
+                                       self._cache["prec"], self.qm,
+                                       n_layers)              # (ant, n_re)
+        fd_slot[:, torch.as_tensor(self._data_columns(usage), device=dev)] \
+            = precoded
+        return fd_slot, usage
+
+    def _dmrs_process(self, fd_slot, usage, slot):
+        """Write the precoded DMRS of one slot (one indexed write) and
+        mark its REs in usage; PRBs whose first antenna's usage holds an
+        SSB RE are skipped. Raises AssertionError where the DMRS would
+        take a CSI-RS RE."""
+        cfg, dmrs = self.cfg, self.cfg["DMRS"]
+        assert dmrs["DMRSConfigType"] == 1 and dmrs["NrOfDMRSSymbols"] == 1
+        rb_start = cfg["ResAlloType1"]["RBStart"]
+        rb_size = cfg["ResAlloType1"]["RBSize"]
+        n_layers = cfg["num_of_layers"]
+        ports = cfg["PortIndexList"]
+        n_sc = 12 * self.prb_size
+
+        # per-PRB usage template
+        re_map_prb = np.zeros((n_layers, 12), np.int8)
+        if dmrs["NumCDMGroupsWithoutData"] == 2:
+            re_map_prb[:, :] = RE_USAGE["PDSCH-DMRS-RSV"]
+        for m in range(n_layers):
+            d0 = ports[m] - 1000
+            re_map_prb[d0, (d0 // 2) % 2::2] = RE_USAGE["PDSCH-DMRS"]
+
+        symlist = self._dmrs_symlist()
+        vals = self._dmrs_values(slot)                # (nd, ant, rb12)
+        res, vs = [], []
+        for k, sym in enumerate(symlist):
+            start = sym * n_sc + rb_start * 12
+            for m in range(n_layers):
+                delta = ((ports[m] - 1000) // 2) % 2
+                if np.any(usage[:, start + delta: start + rb_size * 12: 2]
+                          == RE_USAGE["CSI-RS"]):
+                    raise AssertionError("DMRS collides with CSI-RS")
+            seg = usage[0, start: start + rb_size * 12].reshape(rb_size, 12)
+            keep = ~np.any(seg == RE_USAGE["SSB"], axis=1)   # skip SSB PRBs
+            prb_cols = (start + 12 * np.flatnonzero(keep))[:, None] \
+                + np.arange(12)
+            res.append(prb_cols.reshape(-1))
+            vs.append(vals[k].reshape(-1, rb_size, 12)[:, keep]
+                      .reshape(vals.shape[1], -1))
+            usage[:n_layers, prb_cols] = re_map_prb[:, None, :]
+        write_res(fd_slot, np.arange(vals.shape[1])[:, None],
+                  np.concatenate(res)[None, :], np.concatenate(vs, axis=1))
+
+    def _alloc_res(self) -> np.ndarray:
+        """The allocation's REs, symbol by symbol, subcarriers ascending."""
+        cfg = self.cfg
+        n_sc = 12 * self.prb_size
+        syms = np.arange(cfg["StartSymbolIndex"],
+                         cfg["StartSymbolIndex"] + cfg["NrOfSymbols"])
+        return (syms[:, None] * n_sc + cfg["ResAlloType1"]["RBStart"] * 12
+                + np.arange(cfg["ResAlloType1"]["RBSize"] * 12)).reshape(-1)
+
+    def _data_mapping_prepare(self, usage) -> int:
+        """Mark the allocation's empty REs (first antenna's usage) as PDSCH
+        data on every antenna -> their number. Raises AssertionError where
+        the allocation overlaps PDCCH REs."""
+        alloc = self._alloc_res()
+        first = usage[0, alloc]
+        if np.any(np.isin(first, [RE_USAGE["PDCCH-DATA"],
+                                  RE_USAGE["PDCCH-DMRS"]])):
+            raise AssertionError("PDSCH overlaps PDCCH resources")
+        empty = alloc[first == RE_USAGE["empty"]]
+        usage[:, empty] = RE_USAGE["PDSCH-DATA"]
+        return int(empty.size)
+
+    def _data_columns(self, usage) -> np.ndarray:
+        """The REs the data symbols go to, in mapping order: the
+        allocation's REs whose first antenna's usage is PDSCH data."""
+        alloc = self._alloc_res()
+        return alloc[usage[0, alloc] == RE_USAGE["PDSCH-DATA"]]
 
 
 def _attach_rx_methods():

@@ -38,6 +38,7 @@ from python_5gtoolbox_tpu_torch.phy.pdsch import (SlotBatchTx, dlsch_encode,
                                                   get_dmrs_symlist)
 from python_5gtoolbox_tpu_torch.phy.pusch_uci import (
     encode_uci_on_ulsch, get_ulsch_rm_info, multiplex_tags)
+from python_5gtoolbox_tpu_torch.phy.validate import validate_pusch_config
 from python_5gtoolbox_tpu_torch.utils.numerology import (RE_USAGE,
                                                          carrier_prb_size)
 
@@ -132,12 +133,13 @@ class NrPUSCH(SlotBatchTx):
 
     rng: numpy Generator for transport blocks (default: seeded with 0);
     device: where the TX tensors live (None -> cuda). The configuration
-    is not validated: phy/validate.py is not ported (Queue A item 6), and
-    Pdsch does not validate either.
+    is validated first (phy/validate.py:validate_pusch_config, ValueError
+    naming the field), as in the JAX package.
     """
 
     def __init__(self, carrier_config: dict, pusch_config: dict,
                  rng: np.random.Generator | None = None, device=None):
+        validate_pusch_config(carrier_config, pusch_config)
         self.carrier = carrier_config
         self.cfg = dict(pusch_config)
         self.device = resolve_device(device)
@@ -200,7 +202,7 @@ class NrPUSCH(SlotBatchTx):
         and block draws follow tx_grid_batch; trblk (TBSize,) replaces
         the slot's block."""
         cfg = self.cfg
-        if (slot % cfg["period_in_slot"]) not in cfg["allocated_slots"]:
+        if not self.is_active_slot(slot):
             return fd_slot, usage
         rv = self.getnextrv()
         if trblk is None:

@@ -1,7 +1,9 @@
-"""Where the link-level PDSCH or PUSCH sweep spends its time on the card.
+"""Where the link-level PDSCH or PUSCH sweep, or a test model, spends its
+time on the card.
 
     python -m python_5gtoolbox_tpu_torch.sim.profile_sweep \
-        [--rate-mhz 245.76] [--small-alloc | --pusch] [TRACE.json]
+        [--rate-mhz 245.76] [--small-alloc | --pusch | --testmodel TM]
+        [TRACE.json]
 
 Runs the bench configuration (pdsch_throughput.bench_link_level_config,
 6 SNR points x 20 slots; with --small-alloc its small allocation,
@@ -17,7 +19,13 @@ and prints one JSON line each:
     without stage synchronisation, the sweep's wall time and the share
     of it the device was busy; with a path argument the Chrome trace of
     that sweep is written there; "port_kernels" lists the hand-written
-    kernels among them, whatever their rank.
+    kernels among them, whatever their rank; "host_top" the host-side
+    operations and runtime calls with the most self CPU time.
+With --testmodel (NR-FR1-TM1.1 ... NR-FR1-TM3.1a) it runs that test
+model at full width (scs 30 / BW 100 / TDD, 40 slots at 122.88 Msps,
+payloads from seed 0) through gen_dl_waveform in place of the sweep; its
+"stages" are the per-slot grid loop (slot_grids: every channel's
+process) and the whole waveform (gen_dl_waveform), each synchronised.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -30,8 +38,11 @@ import time
 
 import torch
 
+from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim
+from python_5gtoolbox_tpu_torch.utils import numerology as num
+from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
 N_SLOTS = 20
@@ -76,6 +87,25 @@ def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False):
                prof=prof)
 
 
+def _run_testmodel(tm: str, prof=None):
+    """The test model at full width; with prof (a SyncStageTimer) its
+    per-slot grid loop is timed on its own first."""
+    wf, carrier, ssb, csirs, coreset, ss, pdcch, pdsch = gen_nr_tm_cfg(
+        30, 100, "TDD", tm, 1, 3500.0)
+    args = (wf, carrier, ssb, pdcch, ss, coreset, csirs, pdsch)
+    if prof is not None:
+        lists = dl_wf.gen_dl_channel_list(*args, device="cuda")
+        n_sc = 12 * num.carrier_prb_size(30, 100)
+        with prof.stage("slot_grids"):
+            dl_wf._per_slot_grids(wf, carrier["num_of_ant"], n_sc,
+                                  num.slots_per_frame(30), *lists,
+                                  torch.device("cuda"))
+    with contextlib.nullcontext() if prof is None \
+            else prof.stage("gen_dl_waveform"):
+        return dl_wf.gen_dl_waveform(
+            wf, carrier, *dl_wf.gen_dl_channel_list(*args, device="cuda"))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rate-mhz", type=float, default=None,
@@ -86,22 +116,32 @@ def main() -> None:
     ap.add_argument("--pusch", action="store_true",
                     help="the transform-precoded UL sweep (carrier rate "
                          "only)")
+    ap.add_argument("--testmodel", default=None,
+                    help="a test model at full width in place of the sweep")
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
-    if args.pusch and (args.rate_mhz is not None or args.small_alloc):
-        ap.error("--pusch runs at the carrier rate on its own allocation")
+    if (args.pusch or args.testmodel) and (args.rate_mhz is not None
+                                           or args.small_alloc):
+        ap.error("--pusch and --testmodel run at the carrier rate on their "
+                 "own allocation")
     rate, small, pusch = args.rate_mhz, args.small_alloc, args.pusch
+    tm = args.testmodel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _run_sweep(rate, small_alloc=small, pusch=pusch)     # warm
+
+    def run(prof=None):
+        if tm:
+            return _run_testmodel(tm, prof)
+        return _run_sweep(rate, prof, small, pusch)
+    run()                                                # warm
     timer = SyncStageTimer()
     t0 = time.perf_counter()
-    _run_sweep(rate, timer, small, pusch)
+    run(timer)
     wall = time.perf_counter() - t0
     total = sum(timer.seconds.values())
     print(json.dumps(dict(
         phase="stages", rate_mhz=rate, small_alloc=small, pusch=pusch,
-        wall_s=wall,
+        testmodel=tm, wall_s=wall,
         seconds=timer.seconds,
         share={k: v / total for k, v in timer.seconds.items()})), flush=True)
 
@@ -109,14 +149,16 @@ def main() -> None:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _run_sweep(rate, small_alloc=small, pusch=pusch)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, host = [], []
     for evt in prof.key_averages():
         # device-side events only (kernels, memcpy, memset): operator
         # events would count their kernels' time a second time
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host.append(dict(name=evt.key[:90], calls=evt.count,
+                             self_cpu_ms=evt.self_cpu_time_total / 1e3))
             continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
@@ -128,13 +170,14 @@ def main() -> None:
     busy = sum(r["device_ms"] for r in rows) / 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    host.sort(key=lambda r: -r["self_cpu_ms"])
     print(json.dumps(dict(
         phase="kernels", rate_mhz=rate, small_alloc=small, pusch=pusch,
-        wall_s=wall,
+        testmodel=tm, wall_s=wall,
         device_busy_s=busy,
         device_busy_share=busy / wall,
         launches=sum(r["calls"] for r in rows), n_kernel_names=len(rows),
-        top=rows[:20], port_kernels=own)), flush=True)
+        top=rows[:20], port_kernels=own, host_top=host[:15])), flush=True)
 
 
 if __name__ == "__main__":

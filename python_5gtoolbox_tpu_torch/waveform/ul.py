@@ -92,9 +92,7 @@ def _per_slot_grids(nrPusch_list, slots, nant, n_sc, trblks=None
     rows = None if trblks is None else iter(trblks)
     for idx, slot in enumerate(slots):
         for ch in nrPusch_list:
-            cfg = ch.cfg
-            allocated = (slot % cfg["period_in_slot"]) in \
-                cfg["allocated_slots"]
+            allocated = ch.is_active_slot(slot)
             trblk = next(rows) if rows is not None and allocated else None
             ch.process(grids[idx], usages[idx], slot, trblk=trblk)
     return grids.reshape(len(slots), nant, 14, n_sc)

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
 plain PyTorch version (the two LDPC kernels in every schedule and check
-node), the sweeps through them, and the plain-PyTorch polar decoder (a
-CUDA graph on the card), its study and UCI on PUSCH against the CPU.
+node), the sweeps through them, the plain-PyTorch polar decoder (a
+CUDA graph on the card), its study and UCI on PUSCH against the CPU, and
+the multi-channel DL waveforms (a full-width test model, all four DL
+channels at 245.76 Msps, the standalone SSB waveform).
 
 Marked `cuda`; every test skips (from the `cuda_device` fixture) where
 torch sees no CUDA device. On the card (whose Python has no jax, which
@@ -707,3 +709,70 @@ def test_uci_on_pusch_on_card(cuda_device):
         np.testing.assert_array_equal(uci[name][0], np.tile(sent, (4, 1)))
     assert kernels.LAUNCHES["banded_fir"] == 2
     assert kernels.LAUNCHES["ldpc_minsum_flooded"] == 1
+
+
+def test_testmodel_full_width_on_card(cuda_device):
+    """TM3.1a at scs 30 / BW 100 / TDD (40 slots, 122.88 Msps): exactly
+    one banded_fir launch (287 taps on 2x2457600 planes), dl equal to the
+    plain FIR on the returned td, fd equal to the CPU run's."""
+    from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg
+    from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
+
+    def run(device):
+        wf, carrier, ssb, csirs, coreset, ss, pdcch, pdsch = gen_nr_tm_cfg(
+            30, 100, "TDD", "NR-FR1-TM3.1a", 1, 3500.0)
+        lists = dl_wf.gen_dl_channel_list(wf, carrier, ssb, pdcch, ss,
+                                          coreset, csirs, pdsch, seed=2,
+                                          device=device)
+        return dl_wf.gen_dl_waveform(wf, carrier, *lists)
+    kernels.reset_launches()
+    fd, td, dl, _ = run(cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_fir"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert dl.shape == td.shape == (1, 2457600)
+    ref = filters.banded_fir_plain(torch.cat([td.real, td.imag]),
+                                   filters.fir_coeff(30, 100), "same")
+    assert (dl - torch.complex(ref[:1], ref[1:])).abs().max() < 1.2e-4
+    fd_cpu = run("cpu")[0]
+    assert (fd.cpu() - fd_cpu).abs().max() <= 1e-5
+
+
+def test_dl_multichannel_245_on_card(cuda_device):
+    """SSB + CSI-RS + PDCCH + PDSCH, 2 antennas, scs 30 / BW 40, 20 slots
+    at 245.76 Msps: one fir_up2_fused and one banded_fir up2, dl equal to
+    the plain chain on the returned td."""
+    from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tscript
+    from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
+    kw = tscript.dl_multichannel_config(n_slots=20, samplerate_in_mhz=245.76)
+    wf, carrier = kw.pop("waveform_config"), kw.pop("carrier_config")
+    kernels.reset_launches()
+    lists = dl_wf.gen_dl_channel_list(wf, carrier, **kw, device=cuda_device)
+    fd, td, dl, _ = dl_wf.gen_dl_waveform(wf, carrier, *lists)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fir_up2_fused"] == 1
+    assert kernels.LAUNCHES["banded_fir"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 2
+    hb = filters.halfband_coeff()
+    ref = filters.fir_up2_fused_plain(torch.cat([td.real, td.imag]),
+                                      filters.fir_coeff(30, 40), hb)
+    ref = filters.banded_fir_plain(ref, hb, "up2")
+    assert dl.shape == (2, 4 * td.shape[1])
+    assert (dl - torch.complex(ref[:2], ref[2:])).abs().max() < 1.2e-4
+
+
+def test_ssb_waveform_gen_on_card(cuda_device):
+    """NrSSB.waveform_gen at 245.76 Msps (ifftsize 8192), card == CPU."""
+    from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB
+    from python_5gtoolbox_tpu_torch.utils.config import (get_default_config,
+                                                         merged)
+    carrier = merged(get_default_config("dl_carrier"), dict(num_of_ant=2))
+    wf = dict(samplerate_in_mhz=245.76, numofslots=4, startSFN=0,
+              startslot=0)
+    td = NrSSB(carrier, get_default_config("ssb"),
+               device=cuda_device).waveform_gen(wf)
+    td_cpu = NrSSB(carrier, get_default_config("ssb"),
+                   device="cpu").waveform_gen(wf)
+    assert td.shape == td_cpu.shape == (2, 4 * 15 * 8192)
+    assert (td.cpu() - td_cpu).abs().max() <= 1e-5
+    assert td_cpu.abs().max() > 0

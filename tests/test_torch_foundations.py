@@ -51,6 +51,13 @@ def _no_golden_gen():
 
 DATA_FILES = ["configs/default_dl_carrier_config.json",
               "configs/default_pdsch_config.json",
+              "configs/default_ssb_config.json",
+              "configs/default_coreset_config.json",
+              "configs/default_search_space.json",
+              "configs/default_pdcch_config.json",
+              "configs/default_csirs_config.json",
+              "configs/default_csirs_report_config.json",
+              "configs/default_dl_waveform_config.json",
               "configs/default_channel_model_config.json",
               "configs/default_pusch_config.json",
               "configs/default_ul_carrier_config.json",
@@ -66,7 +73,9 @@ def test_data_file_copies_are_identical(rel):
 
 
 @pytest.mark.parametrize("name", ["dl_carrier", "pdsch", "channel_model",
-                                  "ul_carrier", "pusch", "ul_waveform"])
+                                  "ul_carrier", "pusch", "ul_waveform",
+                                  "ssb", "coreset", "search_space", "pdcch",
+                                  "csirs", "csirs_report", "dl_waveform"])
 def test_default_configs(name):
     assert tconfig.get_default_config(name) == \
         jconfig.get_default_config(name)
@@ -220,7 +229,10 @@ def test_port_sources_import_no_jax():
     assert PORT / "sim" / "ldpc_decoder.py" in files
     for rel in ("ops/polar/decode.py", "ops/polar/segment.py",
                 "ops/smallblock.py", "phy/pusch_uci.py",
-                "sim/polar_decoder.py"):
+                "sim/polar_decoder.py", "phy/validate.py", "phy/dci.py",
+                "phy/ssb.py", "phy/csirs.py", "phy/pdcch.py",
+                "phy/testmodel.py", "phy/csirs_report.py", "phy/grid.py",
+                "sim/gen_nr_testmodel.py"):
         assert PORT / rel in files, rel
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad
