@@ -98,7 +98,6 @@ from python_5gtoolbox_tpu_torch.phy.csirs import NrCSIRS  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB  # noqa: E402
-from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import polar_decoder as pstudy  # noqa: E402
@@ -1347,18 +1346,12 @@ def phase_waveforms() -> dict:
     return out
 
 
-TM_LIST = ["NR-FR1-TM1.1", "NR-FR1-TM2", "NR-FR1-TM2a", "NR-FR1-TM3.1",
-           "NR-FR1-TM3.1a"]
-
-
 def _tm_run(tm, device, seed=0, count_ops=False):
     """gen_dl_waveform of one test model at full width (scs 30, BW 100,
     TDD, cell 1, 3500 MHz: 40 slots at 122.88 Msps) on device, payloads
     from seed -> (fd, td, dl, PDSCH encodes, ATen operations or None)."""
-    wf, carrier, ssb, csirs, coreset, ss, pdcch, pdsch = gen_nr_tm_cfg(
-        30, 100, "TDD", tm, 1, 3500.0)
-    lists = dl_wf.gen_dl_channel_list(wf, carrier, ssb, pdcch, ss, coreset,
-                                      csirs, pdsch, seed=seed, device=device)
+    wf, carrier, lists = tm_script.tm_channel_lists(
+        tm, tm_script.FULL_WIDTH, seed=seed, device=device)
     n_enc = sum(ch.is_active_slot(s) for ch in lists[1]
                 for s in range(wf["numofslots"]))
     if not count_ops:
@@ -1392,8 +1385,8 @@ def phase_testmodels() -> dict:
     the CPU, which also counts the ATen operations. Returns the launches,
     summed over the TMs."""
     total, rows, fds = {}, [], {}
-    fir = filters.fir_coeff(30, 100)
-    for tm in TM_LIST:
+    fir = filters.fir_coeff(*tm_script.FULL_WIDTH[:2])
+    for tm in tm_script.TM_list:
         kernels.reset_launches()
         fd, td, dl, n_enc, _ = _tm_run(tm, DEV)
         torch.cuda.synchronize()

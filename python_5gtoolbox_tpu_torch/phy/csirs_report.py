@@ -147,7 +147,7 @@ def csirs_channel_estimate(fd_slot_rx, nrcsirs: NrCSIRS, sfn: int,
     """LS estimate at CSI-RS REs with fd-CDM2 despreading.
 
     fd_slot_rx: (Nr, 14*n_sc) received grid of one slot, a tensor (a
-    numpy array is taken as a CPU tensor). Returns (H, prb_of_group,
+    numpy array goes to resolve_device(None), the card). Returns (H, prb_of_group,
     n_var): H complex64 (ngroups, Nr, P) on fd_slot_rx's device, one
     estimate per CDM group, aligned across ports by frequency order;
     prb_of_group numpy int (ngroups,); n_var the per-RE noise power (a
@@ -164,7 +164,9 @@ def csirs_channel_estimate(fd_slot_rx, nrcsirs: NrCSIRS, sfn: int,
     tx = tx.numpy()
     gsz = 2 if nrcsirs.cfg["cdm_type"] == "fd-CDM2" else 1
 
-    y = torch.as_tensor(fd_slot_rx).to(torch.complex64)
+    if not isinstance(fd_slot_rx, torch.Tensor):
+        fd_slot_rx = torch.as_tensor(fd_slot_rx, device=resolve_device(None))
+    y = fd_slot_rx.to(torch.complex64)
     dev = y.device
     hs, prbs = [], None
     for p in range(ports):

@@ -35,6 +35,24 @@ cell_id = 1
 fc_mhz = 3500.0
 TM_list = ["NR-FR1-TM1.1", "NR-FR1-TM2", "NR-FR1-TM2a", "NR-FR1-TM3.1",
            "NR-FR1-TM3.1a"]
+# (scs, BW, duplex, cell_id, fc_mhz): the script's constants, and the test
+# models at full width (BW 100: 40 slots at 122.88 Msps)
+SCRIPT_WIDTH = (scs, BW, duplex, cell_id, fc_mhz)
+FULL_WIDTH = (30, 100, "TDD", 1, 3500.0)
+
+
+def tm_channel_lists(tm: str, width=SCRIPT_WIDTH, seed: int = 0,
+                     device=None):
+    """Test model tm at width (scs, BW, duplex, cell_id, fc_mhz) ->
+    (waveform_config, carrier_config, (nrSSB_list, nrPdsch_list,
+    nrCSIRS_list, nrPDCCH_list)), payloads from seed, on device (None ->
+    cuda)."""
+    scs_, bw, dup, cell, fc = width
+    (waveform_cfg, carrier_cfg, ssb_cfg, csirs_list, coreset_list, ss_list,
+     pdcch_list, pdsch_list) = gen_nr_tm_cfg(scs_, bw, dup, tm, cell, fc)
+    return waveform_cfg, carrier_cfg, gen_dl_channel_list(
+        waveform_cfg, carrier_cfg, ssb_cfg, pdcch_list, ss_list,
+        coreset_list, csirs_list, pdsch_list, seed=seed, device=device)
 
 
 def dl_multichannel_config(n_slots: int = 20,
@@ -83,17 +101,9 @@ def main(argv=None) -> list[pathlib.Path]:
     out_dir.mkdir(parents=True, exist_ok=True)
     written = []
     for tm in TM_list:
-        (waveform_cfg, carrier_cfg, ssb_cfg, csirs_list, coreset_list,
-         ss_list, pdcch_list, pdsch_list) = gen_nr_tm_cfg(
-            scs, BW, duplex, tm, cell_id, fc_mhz)
-        ssb_l, pdsch_l, csirs_l, pdcch_l = gen_dl_channel_list(
-            waveform_cfg, carrier_cfg, ssb_cfg, pdcch_list, ss_list,
-            coreset_list, csirs_list, pdsch_list, seed=args.seed,
-            device=device)
-        _, _, dl, _ = gen_dl_waveform(
-            waveform_cfg, carrier_cfg, nrSSB_list=ssb_l,
-            nrPdsch_list=pdsch_l, nrCSIRS_list=csirs_l,
-            nrPDCCH_list=pdcch_l)
+        waveform_cfg, carrier_cfg, lists = tm_channel_lists(
+            tm, seed=args.seed, device=device)
+        _, _, dl, _ = gen_dl_waveform(waveform_cfg, carrier_cfg, *lists)
         dl = dl.cpu().numpy()
         name = tm.replace(".", "p").replace("-", "_")
         out = out_dir / f"{name}_scs{scs}_bw{BW}_{duplex}.npz"

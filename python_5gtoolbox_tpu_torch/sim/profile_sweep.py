@@ -24,8 +24,10 @@ and prints one JSON line each:
 With --testmodel (NR-FR1-TM1.1 ... NR-FR1-TM3.1a) it runs that test
 model at full width (scs 30 / BW 100 / TDD, 40 slots at 122.88 Msps,
 payloads from seed 0) through gen_dl_waveform in place of the sweep; its
-"stages" are the per-slot grid loop (slot_grids: every channel's
-process) and the whole waveform (gen_dl_waveform), each synchronised.
+"stages", each synchronised and together the whole run, are the channel
+objects' construction (channel_list) and gen_dl_waveform's own:
+slot_grids (every channel's process, slot by slot), low_phy (OFDM and
+slot phase) and channel_filter.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -38,10 +40,9 @@ import time
 
 import torch
 
-from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg
+from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tm_script
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim
-from python_5gtoolbox_tpu_torch.utils import numerology as num
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
@@ -88,22 +89,12 @@ def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False):
 
 
 def _run_testmodel(tm: str, prof=None):
-    """The test model at full width; with prof (a SyncStageTimer) its
-    per-slot grid loop is timed on its own first."""
-    wf, carrier, ssb, csirs, coreset, ss, pdcch, pdsch = gen_nr_tm_cfg(
-        30, 100, "TDD", tm, 1, 3500.0)
-    args = (wf, carrier, ssb, pdcch, ss, coreset, csirs, pdsch)
-    if prof is not None:
-        lists = dl_wf.gen_dl_channel_list(*args, device="cuda")
-        n_sc = 12 * num.carrier_prb_size(30, 100)
-        with prof.stage("slot_grids"):
-            dl_wf._per_slot_grids(wf, carrier["num_of_ant"], n_sc,
-                                  num.slots_per_frame(30), *lists,
-                                  torch.device("cuda"))
+    """The test model at full width, its stages charged to prof."""
     with contextlib.nullcontext() if prof is None \
-            else prof.stage("gen_dl_waveform"):
-        return dl_wf.gen_dl_waveform(
-            wf, carrier, *dl_wf.gen_dl_channel_list(*args, device="cuda"))
+            else prof.stage("channel_list"):
+        wf, carrier, lists = tm_script.tm_channel_lists(
+            tm, tm_script.FULL_WIDTH, device="cuda")
+    return dl_wf.gen_dl_waveform(wf, carrier, *lists, prof=prof)
 
 
 def main() -> None:

@@ -27,6 +27,8 @@ the two agree at startslot 0).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -42,7 +44,7 @@ from python_5gtoolbox_tpu_torch.utils import numerology as num
 def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
                     nrSSB_list=(), nrPdsch_list=(), nrCSIRS_list=(),
                     nrPDCCH_list=(), Dm: np.ndarray | None = None,
-                    trblks=None, device=None):
+                    trblks=None, prof=None):
     """-> (fd_waveform, td_waveform, dl_waveform, td_sample_rate_hz), all
     tensors on the channels' device.
 
@@ -51,9 +53,12 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     single-PDSCH branch without timing-error injection (Dm all zero) the
     antenna roll is folded into the grid and td is not produced, as on the
     JAX device path; the composed branch returns td. trblks (Sa, TBSize)
-    is handed to Pdsch.tx_grid_batch (single-PDSCH branch only). device
-    is where the composed branch works when no PDSCH or SSB names one
-    (None -> cuda).
+    is handed to Pdsch.tx_grid_batch (single-PDSCH branch only). The
+    composed branch works on the first PDSCH's or SSB's device (cuda when
+    there is neither). prof: optional stage timer (an object whose
+    stage(name) is a context manager) charged with the composed branch's
+    slot_grids (every channel's process), low_phy (OFDM and slot phase)
+    and channel_filter stages.
     """
     n_slots = waveform_config["numofslots"]
     start_slot = waveform_config["startslot"]
@@ -66,6 +71,7 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     spf = num.slots_per_frame(scs)
     slots = [(start_slot + idx) % spf for idx in range(n_slots)]
     no_dm = Dm is None or not np.any(np.asarray(Dm))
+    stage = prof.stage if prof is not None else _no_stage
 
     single = (len(nrPdsch_list) == 1 and not nrSSB_list and not nrCSIRS_list
               and not nrPDCCH_list and nrPdsch_list[0].tx_batch_supported())
@@ -86,21 +92,28 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
         if trblks is not None:
             raise ValueError("trblks= needs a single batch-capable PDSCH "
                              "and no other channel")
-        if device is None:
-            device = next((ch.device for ch in (*nrPdsch_list, *nrSSB_list)),
-                          None)
-        fd = _per_slot_grids(waveform_config, nant, 12 * prb, spf,
-                             nrSSB_list, nrPdsch_list, nrCSIRS_list,
-                             nrPDCCH_list, resolve_device(device))
-    dm = None if no_dm else torch.as_tensor(np.asarray(Dm),
-                                            device=fd.device)
-    td = ofdm.tx_low_phy(fd, scs, bw, fc_hz, dm=dm)
-    ph = ofdm._slot_phase_const(scs, fc_hz, n_slots, start_slot)
-    td = td * torch.as_tensor(ph, device=fd.device)[:, None, None]
-    td_flat = td.transpose(0, 1).reshape(nant, -1)
-    dl = filters.tx_channel_filter(td_flat, scs, bw, out_rate_hz)
+        device = next((ch.device for ch in (*nrPdsch_list, *nrSSB_list)),
+                      None)
+        with stage("slot_grids"):
+            fd = _per_slot_grids(waveform_config, nant, 12 * prb, spf,
+                                 nrSSB_list, nrPdsch_list, nrCSIRS_list,
+                                 nrPDCCH_list, resolve_device(device))
+    with stage("low_phy"):
+        dm = None if no_dm else torch.as_tensor(np.asarray(Dm),
+                                                device=fd.device)
+        td = ofdm.tx_low_phy(fd, scs, bw, fc_hz, dm=dm)
+        ph = ofdm._slot_phase_const(scs, fc_hz, n_slots, start_slot)
+        td = td * torch.as_tensor(ph, device=fd.device)[:, None, None]
+        td_flat = td.transpose(0, 1).reshape(nant, -1)
+    with stage("channel_filter"):
+        dl = filters.tx_channel_filter(td_flat, scs, bw, out_rate_hz)
     return (fd.transpose(0, 1).reshape(nant, -1), td_flat, dl,
             nfft * scs * 1000)
+
+
+@contextlib.contextmanager
+def _no_stage(name):
+    yield
 
 
 def _per_slot_grids(waveform_config, nant, n_sc, spf, nrSSB_list,

@@ -48,6 +48,20 @@ def test_channel_estimate_matches_jax(ports, row, bits, noise):
                                atol=1e-9)
 
 
+def test_channel_estimate_numpy_input_goes_to_the_card():
+    """A numpy grid is taken to the card, as every entry point's default
+    device; on a host without one that raises."""
+    carrier, csirs, _ = _cfgs(*CASES[0])
+    h = np.ones((3, 2), np.complex64)
+    y = _rx_grid(carrier, csirs, h, 3, noise=0.0)
+    nr = tcsirs.NrCSIRS(carrier, csirs)
+    if torch.cuda.is_available():
+        assert trep.csirs_channel_estimate(y, nr, 0, 0)[0].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trep.csirs_channel_estimate(y, nr, 0, 0)
+
+
 def _report_pair(carrier, csirs, rcfg, nrx, y, noise_var):
     got = trep.NrCSIRSReport(carrier, csirs, rcfg, n_rx=nrx,
                              device="cpu").report(torch.as_tensor(y), 0, 0,

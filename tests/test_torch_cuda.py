@@ -715,15 +715,12 @@ def test_testmodel_full_width_on_card(cuda_device):
     """TM3.1a at scs 30 / BW 100 / TDD (40 slots, 122.88 Msps): exactly
     one banded_fir launch (287 taps on 2x2457600 planes), dl equal to the
     plain FIR on the returned td, fd equal to the CPU run's."""
-    from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg
+    from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tscript
     from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 
     def run(device):
-        wf, carrier, ssb, csirs, coreset, ss, pdcch, pdsch = gen_nr_tm_cfg(
-            30, 100, "TDD", "NR-FR1-TM3.1a", 1, 3500.0)
-        lists = dl_wf.gen_dl_channel_list(wf, carrier, ssb, pdcch, ss,
-                                          coreset, csirs, pdsch, seed=2,
-                                          device=device)
+        wf, carrier, lists = tscript.tm_channel_lists(
+            "NR-FR1-TM3.1a", tscript.FULL_WIDTH, seed=2, device=device)
         return dl_wf.gen_dl_waveform(wf, carrier, *lists)
     kernels.reset_launches()
     fd, td, dl, _ = run(cuda_device)
@@ -732,7 +729,8 @@ def test_testmodel_full_width_on_card(cuda_device):
     assert sum(kernels.LAUNCHES.values()) == 1
     assert dl.shape == td.shape == (1, 2457600)
     ref = filters.banded_fir_plain(torch.cat([td.real, td.imag]),
-                                   filters.fir_coeff(30, 100), "same")
+                                   filters.fir_coeff(*tscript.FULL_WIDTH[:2]),
+                                   "same")
     assert (dl - torch.complex(ref[:1], ref[1:])).abs().max() < 1.2e-4
     fd_cpu = run("cpu")[0]
     assert (fd.cpu() - fd_cpu).abs().max() <= 1e-5

@@ -8,6 +8,7 @@ PDSCH; 2 antennas, 4 slots) against the JAX package on the same payloads
 single-PDSCH branch against the composed one at startslot 3, and
 sim/gen_nr_testmodel.py end to end.
 """
+import contextlib
 import copy
 
 import numpy as np
@@ -145,6 +146,30 @@ def test_pdsch_asserts_like_jax():
                                         device="cpu")
         with pytest.raises(AssertionError, match=pat):
             tdl.gen_dl_waveform(wf, carrier, *lists)
+
+
+def test_stage_timer_sees_the_composed_stages():
+    """prof= is charged with the composed branch's three stages in order,
+    and leaves the waveform as it is."""
+    class Recorder:
+        def __init__(self):
+            self.names = []
+
+        @contextlib.contextmanager
+        def stage(self, name):
+            self.names.append(name)
+            yield
+
+    kw = tscript.dl_multichannel_config(n_slots=2, samplerate_in_mhz=61.44)
+    wf, carrier = kw["waveform_config"], kw["carrier_config"]
+    args = [kw[k] for k in _LIST_KEYS]
+    rec = Recorder()
+    out = [tdl.gen_dl_waveform(wf, carrier, *tdl.gen_dl_channel_list(
+        wf, carrier, *args, seed=2, device="cpu"), prof=prof)
+        for prof in (None, rec)]
+    assert rec.names == ["slot_grids", "low_phy", "channel_filter"]
+    for a, b in zip(out[0][:3], out[1][:3]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("rate_mhz", [61.44, 245.76])
