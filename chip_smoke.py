@@ -90,20 +90,29 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from python_5gtoolbox_tpu_torch import kernels  # noqa: E402
 from python_5gtoolbox_tpu_torch.interop import state_from_numpy  # noqa: E402
+from python_5gtoolbox_tpu_torch.models import channel as chan_mod  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops import filters, ofdm, polar  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
+from python_5gtoolbox_tpu_torch.ops.ldpc import sch_plan  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy import csirs_report  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.csirs import NrCSIRS  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy.pdsch_rx import copy_rx_pdsch_resource  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB  # noqa: E402
+from python_5gtoolbox_tpu_torch.rx import ce_batch  # noqa: E402
+from python_5gtoolbox_tpu_torch.rx import equalize as teq  # noqa: E402
+from python_5gtoolbox_tpu_torch.rx.batch_core import data_re_layout  # noqa: E402
+from python_5gtoolbox_tpu_torch.rx.channel_estimate import NrChannelEstimation  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import polar_decoder as pstudy  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim.profile_sweep import SyncStageTimer  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tm_script  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import nr_pdsch_throughput_example as pdsch_ex  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import nr_pusch_throughput_example as pusch_ex  # noqa: E402
 from python_5gtoolbox_tpu_torch.utils.config import (  # noqa: E402
     get_default_config, merged)
 from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (  # noqa: E402
@@ -1563,6 +1572,562 @@ def phase_csirs_report() -> None:
          ms=ms)
 
 
+# ---------------------------------------------------------------------------
+# Receiver breadth: the per-slot RX (channel estimation on the card, HARQ
+# combining, UCI), the ML equalizers, the DCT CE, the TDL channel and the
+# reference's PDSCH / PUSCH throughput examples. Plain PyTorch around
+# banded_fir and the LDPC kernels.
+# ---------------------------------------------------------------------------
+
+def _count_syncs(fn):
+    """fn() with CUDA's synchronisation debug mode at "warn" -> (its
+    result, the host<->device synchronisations it made)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _per_slot_rx(obj, slots, rx_fd, ce_cfg, ldpc, algo="MMSE-IRC",
+                 **rx_kw):
+    """The sweep's per-slot loop on every slot: CE, then RX_process."""
+    ests = sim.slot_estimates(obj, slots, rx_fd, range(len(slots)), ce_cfg)
+    return sim.rx_slots(obj, ests, algo, ldpc, **rx_kw)
+
+
+def _clean_point(config, n_slots, link=DL, snr=30.0, seed=30):
+    """One point of n_slots at snr with pinned random transport blocks ->
+    (channel object, slots, rx_fd, blocks sent, CE config)."""
+    _, before = link
+    carrier, ch_cfg, chan, ce, ldpc = config()
+    cls = (lambda: Pdsch(ch_cfg, carrier, device=DEV)) if link is DL \
+        else (lambda: NrPUSCH(carrier, ch_cfg, device=DEV))
+    trblks = np.random.default_rng(seed).integers(
+        0, 2, (n_slots, cls().tbsize), dtype=np.int8)
+    obj, slots, rx_fd = before(carrier, ch_cfg, chan, -snr, n_slots,
+                               seed=seed, device=DEV,
+                               state=state_from_numpy(trblks=trblks,
+                                                      device=DEV))
+    return obj, slots, rx_fd, trblks, sim._ce_config(ce, chan,
+                                                      carrier["scs"])
+
+
+def _both_paths_exact(phase, obj, slots, rx_fd, trblks, ce_cfg, ldpc,
+                      algo="MMSE-IRC") -> dict:
+    """The per-slot and the batched RX on the same received slots: every
+    TB passes with exact bits on both, else raises."""
+    nr = rx_fd.shape[0]
+    outs = _per_slot_rx(obj, slots, rx_fd, ce_cfg, ldpc, algo)
+    ok_s = np.array([bool(o[0]) for o in outs])
+    tb_s = np.stack([o[1].cpu().numpy() for o in outs])
+    ok_b, tb_b = obj.rx_process_batch(
+        rx_fd.reshape(nr, len(slots), -1).transpose(0, 1), slots,
+        {"algo": algo}, ldpc, ce_cfg)
+    row = dict(per_slot_passed=int(ok_s.sum()), batched_passed=int(ok_b.sum()),
+               slots=len(slots),
+               per_slot_bits_exact=bool(np.array_equal(tb_s, trblks)),
+               batched_bits_exact=bool(np.array_equal(tb_b, trblks)))
+    if not (ok_s.all() and ok_b.all() and row["per_slot_bits_exact"]
+            and row["batched_bits_exact"]):
+        raise AssertionError(f"{phase} clean point: {row}")
+    return row
+
+
+def _sch_info(obj) -> tuple:
+    """(G, base graph, code-block info, Ncb) of the channel object's
+    transport block in one slot."""
+    cfg = obj.cfg
+    _, G = data_re_layout(tuple(cfg["PortIndexList"]), cfg["num_of_layers"],
+                          cfg["DMRS"]["NumCDMGroupsWithoutData"],
+                          cfg["ResAlloType1"]["RBSize"],
+                          cfg["StartSymbolIndex"], cfg["NrOfSymbols"],
+                          obj._dmrs_symlist(), obj.qm)
+    _, _, bgn, info, ncb, _ = sch_plan(obj.tbsize, obj.rate1024, G, obj.qm,
+                                       cfg["num_of_layers"], obj.tbs_lbrm)
+    return G, bgn, info, ncb
+
+
+def phase_rx_per_slot() -> dict:
+    """The bench sweep (sim.bench_link_level_config, 6 SNR points x 20
+    slots, MMSE-IRC) through the per-slot RX (use_batch=False: H_LS_est,
+    NrChannelEstimation and RX_process per slot; one ldpc_minsum launch
+    per slot, B = 1), then the batched sweep on the same seeds: slots/s
+    of both, ms per slot of channel_est and rx_process, host<->device
+    synchronisations per slot; the LDPC kernel at B = 1; a 30 dB point of
+    20 slots exact on both paths. Returns the per-slot sweep's
+    launches."""
+    config = sim.bench_link_level_config
+    carrier, pdsch, chan, ce, ldpc = config()
+    snrs, n_slots = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0], 20
+    kw = dict(ceq_algo_list=["MMSE-IRC"], n_slots=n_slots, ce_config=ce,
+              ldpc_config=ldpc, seed=3, device=DEV)
+    sim.run_pdsch_throughput(carrier, pdsch, chan, snrs[:1], use_batch=False,
+                             **kw)                                  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res_s = sim.run_pdsch_throughput(carrier, pdsch, chan, snrs,
+                                     use_batch=False, **kw)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = dict(banded_fir=2 * len(snrs),
+                ldpc_minsum_flooded=len(snrs) * n_slots)
+    if any(launches[k] != v for k, v in want.items()) \
+            or sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"rx_per_slot launches {launches}")
+    timer = SyncStageTimer()
+    sim.run_pdsch_throughput(carrier, pdsch, chan, snrs[:2], use_batch=False,
+                             prof=timer, **kw)
+    stage_ms = {k: v * 1e3 / timer.calls[k] for k, v in timer.seconds.items()}
+    obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+        carrier, pdsch, chan, -snrs[0], n_slots, seed=3, device=DEV)
+    ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
+    torch.cuda.synchronize()
+    _, n_sync = _count_syncs(lambda: torch.stack(
+        [o[0] for o in _per_slot_rx(obj, slots, rx_fd, ce_cfg, ldpc)]).cpu())
+    sim.run_pdsch_throughput(carrier, pdsch, chan, snrs[:1], **kw)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_b = sim.run_pdsch_throughput(carrier, pdsch, chan, snrs, **kw)
+    torch.cuda.synchronize()
+    dt_b = time.perf_counter() - t0
+    SUMMARY["rx_per_slot_slots_per_s"] = len(snrs) * n_slots / dt_s
+    _, bgn, info, _ = _sch_info(obj)
+    ldpc_b1, _ = _ldpc_case("rx_per_slot_ldpc_b1", ldpc_dec.ldpc_minsum,
+                            _noisy_codewords(np.random.default_rng(7),
+                                             info.Zc, bgn, info.C, 2.0),
+                            info.Zc, bgn, ldpc["L"])
+    clean = _both_paths_exact("rx_per_slot",
+                              *_clean_point(config, n_slots)[:4],
+                              ce_cfg, ldpc)
+    emit("rx_per_slot", snr_db=snrs, n_slots=n_slots,
+         per_slot_pass_rate=res_s["MMSE-IRC"],
+         batched_pass_rate=res_b["MMSE-IRC"],
+         per_slot_seconds=dt_s,
+         per_slot_slots_per_s=len(snrs) * n_slots / dt_s,
+         batched_seconds=dt_b, batched_slots_per_s=len(snrs) * n_slots / dt_b,
+         stage_ms_per_call=stage_ms, syncs_per_slot=n_sync / n_slots,
+         tbs_bits=obj.tbsize, code_blocks=info.C, bg=bgn, zc=info.Zc,
+         ldpc_b1_kernel_ms=ldpc_b1["kernel_ms"], launches=launches,
+         at_30db=clean)
+    return launches
+
+
+def _full_width_config():
+    """The bench configuration at full carrier width: scs 30 / BW 100, 273
+    RBs, 2x4, 2 layers, MCS 20 of the 64QAM table."""
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    carrier["BW"] = 100
+    pdsch.update(mcs_table="64QAM", mcs_index=20)
+    pdsch["ResAlloType1"]["RBSize"] = 273
+    return carrier, pdsch, chan, ce, ldpc
+
+
+def phase_rx_per_slot_full_width() -> dict:
+    """The bench setup at full width (_full_width_config), 4 slots at 30
+    dB, per slot and batched (each run twice, the second timed): every TB
+    exact on both paths; TBS, code blocks, base graph, and the LDPC
+    kernel's launch plan and device ms at B = C. Returns the launches of
+    the timed runs."""
+    n_slots = 4
+    ldpc = _full_width_config()[4]
+    obj, slots, rx_fd, trblks, ce_cfg = _clean_point(_full_width_config,
+                                                     n_slots)
+    nr = rx_fd.shape[0]
+    stack = rx_fd.reshape(nr, n_slots, -1).transpose(0, 1)
+    times = {}
+    for path in ("per_slot", "batched"):
+        for rep in range(2):
+            if rep:
+                kernels.reset_launches()
+            t0 = time.perf_counter()
+            if path == "per_slot":
+                outs = _per_slot_rx(obj, slots, rx_fd, ce_cfg, ldpc)
+                torch.stack([o[0] for o in outs]).cpu()
+            else:
+                obj.rx_process_batch(stack, slots, {"algo": "MMSE-IRC"}, ldpc,
+                                     ce_cfg)
+            torch.cuda.synchronize()
+            times[path] = time.perf_counter() - t0
+        times[path + "_launches"] = dict(kernels.LAUNCHES)
+    G, bgn, info, ncb = _sch_info(obj)
+    for path, n_launch in (("per_slot", n_slots), ("batched", 1)):
+        got = times[path + "_launches"]
+        if got["ldpc_minsum_flooded"] != n_launch \
+                or sum(got.values()) != n_launch:
+            raise AssertionError(f"full width {path} launches {got}")
+    row, _ = _ldpc_case("rx_per_slot_full_width_ldpc", ldpc_dec.ldpc_minsum,
+                        _noisy_codewords(np.random.default_rng(8), info.Zc,
+                                         bgn, info.C, 2.0),
+                        info.Zc, bgn, ldpc["L"])
+    clean = _both_paths_exact("rx_per_slot_full_width", obj, slots, rx_fd,
+                              trblks, ce_cfg, ldpc)
+    emit("rx_per_slot_full_width", rbs=273, bw=100, n_slots=n_slots,
+         tbs_bits=obj.tbsize, G=G, code_blocks=info.C, bg=bgn, zc=info.Zc,
+         ncb=ncb, per_slot_ms_per_slot=times["per_slot"] * 1e3 / n_slots,
+         batched_ms_per_slot=times["batched"] * 1e3 / n_slots,
+         per_slot_launches=times["per_slot_launches"],
+         batched_launches=times["batched_launches"],
+         ldpc_at_b_eq_c=dict(kernel_ms=row["kernel_ms"],
+                             cluster=row["cluster"], group=row["group"],
+                             threads=row["threads"], blocks=row["blocks"]),
+         at_30db=clean)
+    return times["per_slot_launches"]
+
+
+def phase_pdsch_throughput_example() -> dict:
+    """sim/nr_pdsch_throughput_example.py at the JAX script's constants
+    (2x4, 2 layers, 64QAM table MCS 5 on 20 RBs, Rayleigh low correlation
+    at fm 200 Hz, -8..4 dB, 20 slots; MMSE, MMSE-IRC, ML-IRC-soft,
+    ML2-IRC-soft, batched): wall s and the pass-rate curves. Then 4 slots
+    at 30 dB for each equalizer: per slot (the RX follows the rv cycle
+    [0, 2, 3, 1] of the configuration) and batched with rv [0], every TB
+    exact. Returns the example's launches."""
+    cfg = pdsch_ex.example_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        pdsch_ex.main(["--out-dir", tmp],
+                      config=dict(cfg, snr_db_list=[0.0], n_slots=2))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        timer = SyncStageTimer()
+        t0 = time.perf_counter()
+        res = pdsch_ex.main(["--out-dir", tmp], config=cfg, prof=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_pts = len(cfg["snr_db_list"])
+    if launches["banded_fir"] != 2 * n_pts or launches[
+            "ldpc_minsum_flooded"] + launches["ldpc_minsum_packed"] \
+            != n_pts * len(cfg["ceq_algo_list"]):
+        raise AssertionError(f"pdsch example launches {launches}")
+    carrier, pdsch, chan = cfg["carrier"], cfg["channel"], cfg["chan_cfg"]
+    ldpc = dict(sim.DEFAULT_LDPC_CONFIG)
+    ce_cfg = sim._ce_config(None, chan, carrier["scs"])
+    exact = {}
+    for rvs in ([0, 2, 3, 1], [0]):
+        obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+            carrier, dict(pdsch, rv=rvs), chan, -30.0, 4, seed=30,
+            device=DEV)
+        sent = np.tile(obj.get_trblk(obj.tbsize), (4, 1))
+        ests = sim.slot_estimates(obj, slots, rx_fd, range(4), ce_cfg)
+        for algo in cfg["ceq_algo_list"]:
+            if rvs == [0]:
+                ok, tb = obj.rx_process_batch(
+                    rx_fd.reshape(rx_fd.shape[0], 4, -1).transpose(0, 1),
+                    slots, {"algo": algo}, ldpc, ce_cfg)
+                key = f"batched_rv0 {algo}"
+            else:
+                outs = sim.rx_slots(obj, ests, algo, ldpc)
+                ok = np.array([bool(o[0]) for o in outs])
+                tb = np.stack([o[1].cpu().numpy() for o in outs])
+                key = f"per_slot {algo}"
+            exact[key] = int((ok & np.all(tb == sent, axis=1)).sum())
+    qm = Pdsch(pdsch, carrier, device=DEV).qm
+    SUMMARY["pdsch_example_wall_s"] = wall
+    emit("pdsch_throughput_example", snr_db=cfg["snr_db_list"],
+         n_slots=cfg["n_slots"], wall_s=wall,
+         stage_s=dict(timer.seconds), pass_rate={
+             a: res[a] for a in cfg["ceq_algo_list"]},
+         tbs_bits=res["tbs_bits"], qm=qm,
+         ml_candidates_per_re=(2 ** qm) ** pdsch["num_of_layers"],
+         launches=launches, exact_of_4_at_30db=exact)
+    if any(v != 4 for v in exact.values()):
+        raise AssertionError(f"pdsch example at 30 dB: {exact}")
+    return launches
+
+
+def phase_pusch_throughput_example() -> dict:
+    """sim/nr_pusch_throughput_example.py at the JAX script's constants
+    (TDL-A, DS 30 ns, 1x2, MCStable61411 MCS 5 on 20 RBs, rv [0], 30
+    slots, -10..2 dB, FO off): wall s and the channel stage. Then the
+    TDL-A channel with its 23 per-path taps and the noise pinned
+    (interop.state_from_numpy): the filter card == CPU, and 4 slots at 30
+    dB through the per-slot RX: ok flags and TB bits card == CPU. Returns
+    the example's launches."""
+    cfg = pusch_ex.example_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        pusch_ex.main(["--out-dir", tmp],
+                      config=dict(cfg, snr_db_list=[0.0], n_slots=2))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        timer = SyncStageTimer()
+        t0 = time.perf_counter()
+        res = pusch_ex.main(["--out-dir", tmp], config=cfg, prof=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_pts = len(cfg["snr_db_list"])
+    if launches["banded_fir"] != 2 * n_pts or launches[
+            "ldpc_minsum_flooded"] + launches["ldpc_minsum_packed"] != n_pts:
+        raise AssertionError(f"pusch example launches {launches}")
+    carrier, pusch, chan = cfg["carrier"], cfg["channel"], cfg["chan_cfg"]
+    scs, n_slots = carrier["scs"], 4
+    from python_5gtoolbox_tpu_torch.utils.numerology import (
+        carrier_prb_size, fft_size)
+    fs = fft_size(carrier_prb_size(scs, carrier["BW"])) * scs * 1000.0
+    n = n_slots * int(round(fs * 1e-3 * 15 / scs))
+    gen = torch.Generator().manual_seed(5)
+    taps = [chan_mod.gen_mimo_channel(
+        gen, 1, 2, np.asarray(chan["Rspat"]), n, fs, p[2], p[3], p[4],
+        chan["fm_inHz"], chan["num_of_sinusoids"]).numpy()
+        for p in chan["multi_paths"]]
+    rng = np.random.default_rng(6)
+    noise = (rng.standard_normal((2, n)), rng.standard_normal((2, n)))
+    trblks = rng.integers(0, 2, (n_slots, res["tbs_bits"]), dtype=np.int8)
+    tx = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
+          ).astype(np.complex64)
+    ce_cfg = sim._ce_config(cfg["ce"], chan, scs)
+    ldpc = dict(sim.DEFAULT_LDPC_CONFIG)
+    out = []
+    for dev in (DEV, torch.device("cpu")):
+        st = state_from_numpy(trblks=trblks, taps=taps, noise=noise,
+                              device=dev)
+        model = chan_mod.NrChannelModel(chan, -30.0, 3.5e9, fs, scs,
+                                        device=dev)
+        filt = model.filter(torch.as_tensor(tx, device=dev), taps=st["taps"],
+                            noise=st["noise"]).cpu().numpy()
+        obj, slots, rx_fd = usim.pusch_before_ceq_processing(
+            carrier, pusch, chan, -30.0, n_slots, seed=30, device=dev,
+            state=st)
+        outs = _per_slot_rx(obj, slots, rx_fd, ce_cfg, ldpc)
+        out.append((filt, np.array([bool(o[0]) for o in outs]),
+                    np.stack([o[1].cpu().numpy() for o in outs])))
+    card, cpu = out
+    filt_err = float(np.abs(card[0] - cpu[0]).max() / np.abs(cpu[0]).max())
+    same = bool(np.array_equal(card[1], cpu[1])
+                and np.array_equal(card[2], cpu[2]))
+    SUMMARY["pusch_example_wall_s"] = wall
+    emit("pusch_throughput_example", snr_db=cfg["snr_db_list"],
+         n_slots=cfg["n_slots"], paths=len(chan["multi_paths"]), wall_s=wall,
+         channel_s=timer.seconds["channel"], stage_s=dict(timer.seconds),
+         pass_rate=res["MMSE-IRC"], tbs_bits=res["tbs_bits"],
+         launches=launches, tdl_filter_rel_err_card_vs_cpu=filt_err,
+         pinned_30db=dict(card_passed=int(card[1].sum()),
+                          cpu_passed=int(cpu[1].sum()),
+                          slots=n_slots, card_equals_cpu=same))
+    if filt_err > 1e-5 or not same or not cpu[1].all():
+        raise AssertionError(f"pusch example pinned draws: filter "
+                             f"{filt_err}, card == CPU {same}")
+    return launches
+
+
+def phase_pusch_uci_per_slot() -> dict:
+    """run_pusch_throughput(decode_uci=True) on both UCI configurations of
+    pusch_uci (2 points x 20 slots: the per-slot TX branch, one banded_fir
+    each way, the per-slot RX with one ldpc_minsum launch per slot), then
+    30 dB: every TB and every UCI stream exact in RX_process's returned
+    uci. Returns the launches, summed."""
+    total = {}
+    snrs, n_slots = [0.0, 5.0], UCI_SLOTS
+    rows = []
+    for name, uci in UCI_CONFIGS.items():
+        def config(uci=uci):
+            carrier, pusch, chan, ce, ldpc = _pusch_cp_config()
+            pusch.update(uci)
+            return carrier, pusch, chan, ce, ldpc
+        carrier, pusch, chan, ce, ldpc = config()
+        kw = dict(n_slots=n_slots, ce_config=ce, ldpc_config=ldpc, seed=3,
+                  decode_uci=True, device=DEV)
+        usim.run_pusch_throughput(carrier, pusch, chan, snrs[:1],
+                                  ["MMSE-IRC"], **dict(kw, n_slots=2))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = usim.run_pusch_throughput(carrier, pusch, chan, snrs,
+                                        ["MMSE-IRC"], **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        want = dict(banded_fir=2 * len(snrs),
+                    ldpc_minsum_flooded=len(snrs) * n_slots)
+        if any(launches[k] != v for k, v in want.items()) \
+                or sum(launches.values()) != sum(want.values()):
+            raise AssertionError(f"pusch_uci_per_slot {name} {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        obj, slots, rx_fd, trblks, ce_cfg = _clean_point(config, n_slots,
+                                                         link=UL)
+        outs = _per_slot_rx(obj, slots, rx_fd, ce_cfg, ldpc, decode_uci=True)
+        ok = np.array([bool(o[0]) for o in outs])
+        tb_exact = bool(np.array_equal(
+            np.stack([o[1].cpu().numpy() for o in outs]), trblks))
+        streams = {k: f for k, f in _UCI_FIELDS if pusch.get(
+            {"ack": "EnableACK", "csi1": "EnableCSI1",
+             "csi2": "EnableCSI2"}[k])}
+        uci_exact = {k: sum(bool(o[3][k][1]) and np.array_equal(
+            o[3][k][0].cpu().numpy(), pusch[f]) for o in outs)
+            for k, f in streams.items()}
+        rows.append(dict(config=name, pass_rate=res["MMSE-IRC"],
+                         seconds=dt, slots_per_s=len(snrs) * n_slots / dt,
+                         launches=launches,
+                         at_30db=dict(tb_passed=int(ok.sum()),
+                                      tb_bits_exact=tb_exact,
+                                      uci_exact=uci_exact)))
+        if not ok.all() or not tb_exact \
+                or any(v != n_slots for v in uci_exact.values()) \
+                or any(sorted(o[3]) != sorted(streams) for o in outs):
+            raise AssertionError(f"pusch_uci_per_slot {name}: {rows[-1]}")
+    emit("pusch_uci_per_slot", snr_db=snrs, n_slots=n_slots, configs=rows)
+    return total
+
+
+def _harq_config():
+    """(carrier, pdsch, ce, ldpc, rv cycle, SNR dB, slots) of a HARQ study
+    (tests/test_batch_rx_harq.py): BW 20 / scs 30, 2 TX x 2 RX, 2 layers
+    of 256QAM MCS 10 on 10 RBs, a repeating payload, AWGN at -6 dB noise
+    power where the first transmission fails and soft combining of the
+    rv cycle (0, 2, 3, 1) decodes, 3 slots."""
+    carrier = merged(get_default_config("dl_carrier"),
+                     dict(BW=20, scs=30, num_of_ant=2, Nr=2,
+                          maxMIMO_layers=2, PCI=1,
+                          carrier_frequency_in_mhz=3840.0))
+    payload = np.random.default_rng(9).integers(0, 2, 256).tolist()
+    pdsch = merged(get_default_config("pdsch"),
+                   dict(mcs_index=10, mcs_table="256QAM", num_of_layers=2,
+                        data_source=payload, StartSymbolIndex=2,
+                        NrOfSymbols=12))
+    pdsch["ResAlloType1"].update(RBStart=0, RBSize=10)
+    pdsch["DMRS"].update(nNIDnSCID=1, NumCDMGroupsWithoutData=1,
+                         DMRSAddPos=1)
+    pdsch["precoding_matrix"] = np.empty(0)
+    ce = dict(CE_algo="DFT_symmetric", L_symm_left_in_ns=1400,
+              L_symm_right_in_ns=1200, eRB=4, enable_TO_comp=True,
+              enable_FO_est=False, enable_FO_comp=False)
+    ldpc = dict(L=16, algo="min-sum", alpha=0.8, beta=0.3)
+    return carrier, pdsch, ce, ldpc, [0, 2, 3, 1], -6.0, 3
+
+
+def phase_harq() -> dict:
+    """The HARQ study of _harq_config (tests/test_batch_rx_harq.py: rv
+    cycle 0, 2, 3, 1 over AWGN at -6 dB, 3 slots): the batched chain's
+    per-transmission ok flags equal the per-slot chain's on the card; rv
+    0 alone fails, the combined chain decodes. Returns its launches."""
+    carrier, pdsch, ce, ldpc, rvs, snr, n_slots = _harq_config()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ok_b, ok_s = sim.harq_chains(carrier, pdsch, ce, ldpc, rvs, snr, n_slots,
+                                 device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    emit("harq", rv_cycle=rvs, pnoise_db=snr, n_slots=n_slots,
+         ok_batched=ok_b.tolist(), ok_per_slot=ok_s.tolist(), wall_s=wall,
+         launches=launches)
+    if not np.array_equal(ok_b, ok_s) or ok_b[0].any() \
+            or not ok_b[-1].all():
+        raise AssertionError(f"harq: batched {ok_b} per slot {ok_s}")
+    return launches
+
+
+def phase_ml_equalizers() -> None:
+    """Every ML algorithm on the inputs of the equalize_ml_cases and
+    equalize_ml2_cases goldens (tests/golden/), card against CPU: hard
+    bits equal, LLRs within 1e-3 of their scale. Then ML2-IRC-soft at
+    256QAM with 2 layers and Nr 4 on the data REs of one bench slot:
+    device ms, RE pieces under the 2^29-byte budget, peak memory, the
+    eigh (cuSOLVER) ms of its whitening; card == CPU on its first 64
+    REs."""
+    root = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    worst, n_cases = 0.0, 0
+    for name in ("equalize_ml_cases", "equalize_ml2_cases"):
+        with np.load(root / f"{name}.npz") as z:
+            gold = {k: z[k] for k in z.files}
+        for i in range(sum(k.startswith("y_") for k in gold)):
+            args = [gold[f"{v}_{i}"].astype(np.complex64)
+                    for v in ("y", "h", "cov")]
+            for algo in teq.ML_EQUALIZERS:
+                card = teq.channel_equ_and_demod(*args, "16qam",
+                                                 {"algo": algo}, device=DEV)
+                cpu = teq.channel_equ_and_demod(*args, "16qam",
+                                                {"algo": algo}, device="cpu")
+                err = float((card[3].cpu() - cpu[3]).abs().max()
+                            / cpu[3].abs().max())
+                if not torch.equal(card[2].cpu(), cpu[2]) or err > 1e-3:
+                    raise AssertionError(f"{name} case {i} {algo}: hard "
+                                         f"bits or LLRs {err} card != CPU")
+                worst, n_cases = max(worst, err), n_cases + 1
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+        carrier, pdsch, chan, -20.0, 1, seed=3, device=DEV)
+    ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
+    rx_slot, _, H, cov, est = sim.slot_estimates(obj, slots, rx_fd, [0],
+                                                 ce_cfg)[0]
+    _, sym_idx, re_idx, _ = obj._slot_rx_plan()
+    ssi = pdsch["StartSymbolIndex"]
+    res = est.process_pdsch_data(copy_rx_pdsch_resource(rx_slot, obj.cfg)[0],
+                                 ssi)
+    y, h = res[sym_idx, re_idx], H[sym_idx + ssi, re_idx]
+    cv = cov[sym_idx + ssi, torch.div(re_idx, 12, rounding_mode="floor")]
+    n_re = y.shape[0]
+    teq.ml2(y[:8], h[:8], cv[:8], "256qam", irc=True)               # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, ms = _event_ms(lambda: teq.ml2(y, h, cv, "256qam", irc=True))
+    peak = torch.cuda.max_memory_allocated() - base
+    inv = torch.linalg.inv(teq._reg(cv))
+    _, eigh_ms = _event_ms(lambda: torch.linalg.eigh(inv))
+    cpu = teq.ml2(*(v[:64].cpu() for v in (y, h, cv)), "256qam", irc=True)
+    err = float((out[3][:64].cpu() - cpu[3]).abs().max()
+                / cpu[3].abs().max())
+    hard_equal = torch.equal(out[2][:64].cpu(), cpu[2])
+    emit("ml_equalizers", golden_cases=n_cases,
+         worst_llr_rel_err_card_vs_cpu=worst,
+         ml2_256qam=dict(res_per_slot=n_re, candidates=256 ** 2, nr=4,
+                         pieces=len(teq._pieces(n_re, 256 ** 2, 4)),
+                         device_ms=ms, peak_bytes=peak, eigh_ms=eigh_ms,
+                         first64_hard_equal=hard_equal,
+                         first64_llr_rel_err=err))
+    if not hard_equal or err > 1e-3:
+        raise AssertionError(f"ML2 256QAM card != CPU: {err}")
+
+
+def _dct_config():
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    return carrier, pdsch, chan, dict(ce, CE_algo="DCT"), ldpc
+
+
+def phase_ce_dct() -> dict:
+    """DCT and DCT_symmetric CE on the LS estimates of a bench slot, card
+    against CPU: the per-slot NrChannelEstimation and the batched
+    ce_batch.channel_est_batch, H and cov within 1e-4 of their scale.
+    Then the bench sweep with CE_algo DCT at 2 points (_sweep: 30 dB
+    exact). Returns the sweep's launches."""
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+        carrier, pdsch, chan, -10.0, 1, seed=3, device=DEV)
+    h_ls, info = obj.H_LS_est(rx_fd, slots[0])
+    rows = {}
+    for algo in ("DCT", "DCT_symmetric"):
+        cfg = dict(ce, CE_algo=algo)
+        errs = {}
+        for kind in ("per_slot", "batched"):
+            got = []
+            for dev in (DEV, "cpu"):
+                h = h_ls.to(dev)
+                if kind == "per_slot":
+                    H, cov = NrChannelEstimation(h, dict(info), dict(cfg)) \
+                        .channel_est()
+                else:
+                    o = ce_batch.channel_est_batch(h[None], info, dict(cfg))
+                    H, cov = o["H"][0], o["cov"][0]
+                got.append((H.cpu(), cov.cpu()))
+            errs[kind] = [float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(*got)]
+        rows[algo] = errs
+        if max(max(v) for v in errs.values()) > 1e-4:
+            raise AssertionError(f"ce_dct {algo} card != CPU: {errs}")
+    emit("ce_dct", rel_err_card_vs_cpu_h_cov=rows)
+    return _sweep("ce_dct_sweep", None, ("banded_fir", "ldpc_minsum_flooded"),
+                  config=_dct_config, snrs=(0.0, 5.0))
+
+
 def main() -> None:
     rng = np.random.default_rng(2024)
     phase_device()
@@ -1594,6 +2159,17 @@ def main() -> None:
                        dl_multichannel_245=phase_dl_multichannel_245())
     phase_ssb_waveform_gen()
     phase_csirs_report()
+    # receiver breadth: per phase, the launches of each kernel in its run
+    rx_launches = dict(rx_per_slot=phase_rx_per_slot(),
+                       rx_per_slot_full_width=phase_rx_per_slot_full_width(),
+                       pdsch_throughput_example=(
+                           phase_pdsch_throughput_example()),
+                       pusch_throughput_example=(
+                           phase_pusch_throughput_example()),
+                       pusch_uci_per_slot=phase_pusch_uci_per_slot(),
+                       harq=phase_harq())
+    phase_ml_equalizers()
+    rx_launches["ce_dct"] = phase_ce_dct()
     for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
                  "ldpc_minsum_layered_fast"):
         rows[name] = bench_rows[name]
@@ -1606,9 +2182,9 @@ def main() -> None:
     # in their gen_dl_waveform calls (summed: 2 Dm waveforms, 3 carriers
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
-    # decoder bench through ldpc_decode; ul_launches and dl_launches: the
-    # uplink phases and the multi-channel DL phases that launched the
-    # kernel, with their counts
+    # decoder bench through ldpc_decode; ul_launches, dl_launches and
+    # rx_launches: the uplink phases, the multi-channel DL phases and the
+    # receiver-breadth phases that launched the kernel, with their counts
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
@@ -1637,6 +2213,9 @@ def main() -> None:
                                        if n.get(name, 0) > 0},
                           dl_launches={ph: n[name] for ph, n in
                                        dl_launches.items()
+                                       if n.get(name, 0) > 0},
+                          rx_launches={ph: n[name] for ph, n in
+                                       rx_launches.items()
                                        if n.get(name, 0) > 0}))
     emit("summary", **SUMMARY)
     print(nvidia_smi(), flush=True)

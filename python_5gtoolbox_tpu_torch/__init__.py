@@ -26,3 +26,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device available; pass device='cpu' "
                            "to run the port on the host")
     return dev
+
+
+def on_device(x) -> torch.Tensor:
+    """A tensor keeps its device; anything else (numpy, a list) goes to
+    resolve_device(None), the card, as an entry point's default."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=resolve_device(None))

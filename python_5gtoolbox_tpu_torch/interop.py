@@ -10,8 +10,12 @@ takes that run's draws as numpy arrays and passes them here:
                                         the per-slot branch hands each row
                                         to NrPUSCH.process(trblk=))
   taps   per path (N, Nr, Nt) complex -> NrChannelModel.filter(taps=)
+         (one array per path: 23 for TDL-A)
   noise  (Nr, N) complex, or a (real, imag) pair of unit normals
                                      -> NrChannelModel.filter(noise=)
+
+The sweeps take one such dict per SNR point as states=, batched and per
+slot alike (run_pdsch_throughput, run_pusch_throughput).
 
 For the multi-channel DL waveform (the test models), pin_payloads draws
 one random payload per PDSCH (a transport block) and per PDCCH (the DCI

@@ -1,19 +1,25 @@
-"""MIMO fading channel model: AWGN / Rayleigh / Rician + impairments.
+"""MIMO fading channel model: AWGN / TDL / Rayleigh / Rician + impairments.
 
 Port of python_5gtoolbox_tpu/models/channel.py (NrChannelModel: CFO
 rotation, integer/fractional TA split, per-tap Kronecker-correlated MIMO
 fading, AWGN, per-symbol timing-error matrix Dm; sum-of-sinusoids
-Rayleigh/Rician generators). Randomness comes from an explicit
+Rayleigh/Rician generators; the TR 38.901 TDL-A..E profiles from
+data/tdl_profiles.npz). Randomness comes from an explicit
 torch.Generator on the model's device. filter() also takes pre-drawn
 fading taps and noise, so that a run can reproduce another
-implementation's draws. The TDL profile tables are not ported yet.
+implementation's draws.
 """
 from __future__ import annotations
+
+import functools
+import pathlib
 
 import numpy as np
 import torch
 
 from python_5gtoolbox_tpu_torch import resolve_device
+
+_DATA = pathlib.Path(__file__).resolve().parents[1] / "data"
 
 
 def gen_correlation_matrix(size: int, delta) -> np.ndarray:
@@ -72,23 +78,43 @@ def get_nr_mimo_rspat(nt: int, nr: int, polarization: str = "uniform",
             / (1 + a)).astype(np.complex64)
 
 
+@functools.lru_cache(maxsize=None)
+def _tdl_table(model: str) -> np.ndarray:
+    """(5, taps) TR 38.901 Tables 7.7.2-1..5: normalized delay, power dB,
+    Rician flag, K dB, normalized Doppler."""
+    with np.load(_DATA / "tdl_profiles.npz") as z:
+        return z[model.replace("-", "_")].copy()
+
+
+def get_tdl_model_config(model: str, ds_desired_ns: float,
+                         fm_hz: float) -> list:
+    """Tap list [[delay_ns, power_dB, dist, K_dB, fDo_Hz], ...]."""
+    t = _tdl_table(model)
+    return [[float(t[0, i]) * ds_desired_ns, float(t[1, i]),
+             "Rician" if t[2, i] else "Rayleigh", float(t[3, i]),
+             float(t[4, i]) * fm_hz] for i in range(t.shape[1])]
+
+
 def gen_channel_model_config(model_format="AWGN",
                              Rspat_config=("customized", "uniform", "DL",
                                            (0, 0)),
                              Nt=1, Nr=1, Timeoff_ns=0, rho=0, fm_inHz=0,
                              multi_paths=((0, 0, "Rayleigh", 0, 0),),
-                             fDo_in_Hz=0, Rspat_in=None):
-    """Mirrors nr_channel_model.gen_channel_model_config for the AWGN and
-    customized formats (the TDL formats are not ported yet)."""
+                             fDo_in_Hz=0, Rspat_in=None, DSdesired=100):
+    """Mirrors nr_channel_model.gen_channel_model_config: AWGN, the TDL-A
+    .. TDL-E profiles scaled to the delay spread DSdesired (ns), or the
+    customized multi_paths."""
     cfg = dict(num_of_sinusoids=30, Nt=Nt, Nr=Nr, Timeoff_ns=Timeoff_ns,
                rho=rho, fm_inHz=fm_inHz, fDo_in_Hz=fDo_in_Hz)
     if model_format == "AWGN":
         cfg["multi_paths"] = []
+    elif model_format in ("TDL-A", "TDL-B", "TDL-C", "TDL-D", "TDL-E"):
+        cfg["multi_paths"] = get_tdl_model_config(model_format, DSdesired,
+                                                  fm_inHz)
     elif model_format == "customized":
         cfg["multi_paths"] = [list(p) for p in multi_paths]
     else:
-        raise NotImplementedError(f"channel model {model_format!r} is not "
-                                  f"ported yet")
+        raise ValueError(model_format)
     if Rspat_config:
         corr, pol, direction, params = Rspat_config
         rspat = get_nr_mimo_rspat(Nt, Nr, pol, direction, corr, params)

@@ -86,6 +86,17 @@ def _chunked_tables(length: int, poly: str, chunk: int):
     return pad, Rc, mats
 
 
+@functools.lru_cache(maxsize=64)
+def _device_tables(A: int, poly: str, device: torch.device):
+    """The float32 remainder matrix (A, L) below _CHUNK bits, else (pad,
+    Rc, M) of the chunked CRC, on the device once per length."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if A < _CHUNK:
+        return (torch.as_tensor(_remainder_matrix(A, poly), **f32),)
+    pad, Rc, mats = _chunked_tables(A, poly, _CHUNK)
+    return pad, torch.as_tensor(Rc, **f32), torch.as_tensor(mats, **f32)
+
+
 def _mask_bits(mask, L: int, device=None) -> torch.Tensor:
     """Reference masking: 24-bit MSB-first expansion of mask, keep the L
     LSBs. mask: an int -> (L,), or an int tensor (...) -> (..., L)."""
@@ -106,20 +117,16 @@ def crc_compute(bits: torch.Tensor, poly: str, mask=0) -> torch.Tensor:
     dev = bits.device
     x = bits.to(torch.float32)
     if A < _CHUNK:
-        R = torch.as_tensor(_remainder_matrix(A, poly), dtype=torch.float32,
-                            device=dev)
-        rem = torch.remainder(x @ R, 2.0)
+        rem = torch.remainder(x @ _device_tables(A, poly, dev)[0], 2.0)
     else:
-        pad, Rc, mats = _chunked_tables(A, poly, _CHUNK)
+        pad, Rc, mats = _device_tables(A, poly, dev)
         if pad:
             x = torch.cat([x.new_zeros(x.shape[:-1] + (pad,)), x], dim=-1)
         n = x.shape[-1] // _CHUNK
         x = x.reshape(x.shape[:-1] + (n, _CHUNK))
-        partial = torch.remainder(
-            x @ torch.as_tensor(Rc, dtype=torch.float32, device=dev), 2.0)
-        rem = torch.remainder(torch.einsum(
-            "...nl,nlk->...k", partial,
-            torch.as_tensor(mats, dtype=torch.float32, device=dev)), 2.0)
+        partial = torch.remainder(x @ Rc, 2.0)
+        rem = torch.remainder(torch.einsum("...nl,nlk->...k", partial,
+                                           mats), 2.0)
     rem = rem.to(torch.int8)
     if not isinstance(mask, (int, np.integer)) or mask:
         rem = rem ^ _mask_bits(mask, L, dev)

@@ -204,7 +204,9 @@ def _ldpc_decode_plain(llr_in: torch.Tensor, zc: int, bgn: int,
                        algo: str = "min-sum"):
     """Plain-torch decoder; mirrors decode._ldpc_decode_jit (both
     schedules, min-sum family and BP) and, with semantics="fast", the TPU
-    kernels' relaxed check node."""
+    kernels' relaxed check node. On the CPU the loop stops once every
+    codeword has converged (the later iterations would change nothing);
+    on the card it runs n_iter times without reading done on the host."""
     rows, _, ncols = _graph(bgn, zc)
     b = llr_in.shape[0]
     k = (22 if bgn == 1 else 10) * zc
@@ -229,6 +231,8 @@ def _ldpc_decode_plain(llr_in: torch.Tensor, zc: int, bgn: int,
         newly = ok & ~done
         out_bits = torch.where(newly[:, None, None], bits, out_bits)
         done = done | ok
+        if not llr_in.is_cuda and bool(done.all()):
+            break
 
         new_lr_rows = []
         e0 = 0

@@ -88,22 +88,34 @@ def ldpc_raterecover(llr_fe: torch.Tensor, info: CBInfo, rv: int, Qm: int,
     LLR 0; filler positions get +max_llr (default 10*max|LLR|).
     """
     Ncb = info.N if Ncb is None else Ncb
-    N = info.N
     E = llr_fe.shape[-1]
-    idx_np = _indices(info, E, rv, Ncb)
-    counts = np.maximum(np.bincount(idx_np, minlength=N), 1
-                        ).astype(np.float32)
     dev = llr_fe.device
+    idx, counts, fmask = _recover_tables(info, E, rv, Ncb, dev)
     ek = _deinterleave(llr_fe, Qm).to(torch.float32)
-    acc = ek.new_zeros(llr_fe.shape[:-1] + (N,))
-    acc.index_add_(-1, torch.as_tensor(idx_np, device=dev), ek)
-    acc = acc / torch.as_tensor(counts, device=dev)
+    acc = ek.new_zeros(llr_fe.shape[:-1] + (info.N,))
+    acc.index_add_(-1, idx, ek)
+    acc = acc / counts
     if max_llr is None:
         max_llr = 10.0 * llr_fe.abs().max()
-    f0, f1 = info.Kd - 2 * info.Zc, info.K - 2 * info.Zc
-    if f1 > f0:
-        fmask = torch.zeros(N, dtype=torch.bool, device=dev)
-        fmask[f0:f1] = True
+    if fmask is not None:
         acc = torch.where(fmask, torch.as_tensor(max_llr, dtype=acc.dtype,
                                                  device=dev), acc)
     return acc
+
+
+@functools.lru_cache(maxsize=64)
+def _recover_tables(info: CBInfo, E: int, rv: int, Ncb: int,
+                    device: torch.device):
+    """(circular-buffer index (E,), repetition counts (N,), filler mask
+    (N,) or None) of a rate recovery, on the device once per shape."""
+    idx_np = _indices(info, E, rv, Ncb)
+    counts = np.maximum(np.bincount(idx_np, minlength=info.N), 1
+                        ).astype(np.float32)
+    f0, f1 = info.Kd - 2 * info.Zc, info.K - 2 * info.Zc
+    fmask = None
+    if f1 > f0:
+        fmask = np.zeros(info.N, np.bool_)
+        fmask[f0:f1] = True
+        fmask = torch.as_tensor(fmask, device=device)
+    return (torch.as_tensor(idx_np, device=device),
+            torch.as_tensor(counts, device=device), fmask)

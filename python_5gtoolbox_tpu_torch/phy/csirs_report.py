@@ -31,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from python_5gtoolbox_tpu_torch import resolve_device
+from python_5gtoolbox_tpu_torch import on_device, resolve_device
 from python_5gtoolbox_tpu_torch.phy.csirs import NrCSIRS
 
 # 38.214 Table 5.2.2.1-2 (table1, 64QAM), -3 (table2, 256QAM),
@@ -164,9 +164,7 @@ def csirs_channel_estimate(fd_slot_rx, nrcsirs: NrCSIRS, sfn: int,
     tx = tx.numpy()
     gsz = 2 if nrcsirs.cfg["cdm_type"] == "fd-CDM2" else 1
 
-    if not isinstance(fd_slot_rx, torch.Tensor):
-        fd_slot_rx = torch.as_tensor(fd_slot_rx, device=resolve_device(None))
-    y = fd_slot_rx.to(torch.complex64)
+    y = on_device(fd_slot_rx).to(torch.complex64)
     dev = y.device
     hs, prbs = [], None
     for p in range(ports):

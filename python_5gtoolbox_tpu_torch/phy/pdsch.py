@@ -432,13 +432,6 @@ class Pdsch(SlotBatchTx):
         return alloc[usage[0, alloc] == RE_USAGE["PDSCH-DATA"]]
 
 
-def _attach_rx_methods():
-    """Attach the receive path (phy/pdsch_rx.py) to Pdsch."""
-    from python_5gtoolbox_tpu_torch.phy import pdsch_rx
-
-    Pdsch.rx_process_batch = pdsch_rx.PdschRxMixin.rx_process_batch
-    Pdsch.rx_batch_prepare = pdsch_rx.PdschRxMixin.rx_batch_prepare
-    Pdsch._rx_core = pdsch_rx.PdschRxMixin._rx_core
-
-
-_attach_rx_methods()
+# The receive path (phy/pdsch_rx.py) attaches its methods to Pdsch when
+# it is imported, whichever of the two modules a caller imports first.
+from python_5gtoolbox_tpu_torch.phy import pdsch_rx  # noqa: E402,F401

@@ -329,15 +329,7 @@ class NrPUSCH(SlotBatchTx):
         return fd_slot
 
 
-def _attach_rx_methods():
-    """Attach the receive path (phy/pusch_rx.py) to NrPUSCH."""
-    from python_5gtoolbox_tpu_torch.phy import pusch_rx
-
-    NrPUSCH.rx_process_batch = pusch_rx.PuschRxMixin.rx_process_batch
-    NrPUSCH.rx_batch_prepare = pusch_rx.PuschRxMixin.rx_batch_prepare
-    NrPUSCH._rx_core = pusch_rx.PuschRxMixin._rx_core
-    NrPUSCH.uci_plan = pusch_rx.PuschRxMixin.uci_plan
-    NrPUSCH.RX_process = pusch_rx.PuschRxMixin.RX_process
-
-
-_attach_rx_methods()
+# The receive path (phy/pusch_rx.py) attaches its methods to NrPUSCH
+# when it is imported, whichever of the two modules a caller imports
+# first.
+from python_5gtoolbox_tpu_torch.phy import pusch_rx  # noqa: E402,F401

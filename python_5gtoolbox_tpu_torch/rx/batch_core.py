@@ -1,9 +1,9 @@
 """Slot-batched RX core for PDSCH (DL-SCH) and PUSCH (UL-SCH, UCI).
 
 Port of python_5gtoolbox_tpu/rx/batch_core.py: LS estimation on DMRS
-REs -> DFT CE (rx/ce_batch.py) -> TO/FO data compensation -> linear
-equalization + max-log demod (for DFT-s-OFDM: equalization, the IDFT
-de-precode per symbol, then demod) -> descramble -> [UCI on PUSCH: the
+REs -> DFT/DCT CE (rx/ce_batch.py) -> TO/FO data compensation ->
+equalization + demod, linear or ML (rx/equalize.py; for DFT-s-OFDM a
+linear equalizer, the IDFT de-precode per symbol, then demod) -> descramble -> [UCI on PUSCH: the
 38.212 6.2.7 demultiplex as gathers and the UCI decoders] -> Er-grouped
 LDPC rate recovery (+ optional HARQ soft combine) -> LDPC decode (the
 CUDA min-sum kernel on the card) -> TB CRC. The DL and UL callers
@@ -48,6 +48,29 @@ def data_re_layout(ports, nl: int, ncdm: int, rb_size: int, ssi: int,
         (len(dmrs_data_idx) if (ssi + k) in symlist else rb_size * 12)
         for k in range(nsym))
     return dmrs_data_idx, qm * nl * n_data_re
+
+
+def ls_estimate(fd, dm, symlist, ports, nl: int, rb_start: int,
+                rb_size: int, n_sc: int, scaling: float) -> torch.Tensor:
+    """LS estimate on the DMRS REs of a slot stack (strided slices, CDM
+    pairs combined (d0 +- d1) / (2 scaling)): fd (S, Nr, 14*n_sc), dm (S,
+    nsym, rb*6) -> H_LS (S, nsym, rb*3, Nr, NL)."""
+    h_cols = []
+    for idx, sym in enumerate(symlist):
+        start = sym * n_sc + rb_start * 12
+        cseq = dm[:, idx].conj()                            # (S, rb*6)
+        per_tx = []
+        for tx in range(nl):
+            p0 = ports[tx] - 1000
+            delta = (p0 // 2) % 2
+            d0 = fd[:, :, start + delta: start + rb_size * 12: 4] \
+                * cseq[:, None, 0::2]
+            d1 = fd[:, :, start + delta + 2: start + rb_size * 12: 4] \
+                * cseq[:, None, 1::2]
+            sgn = 1.0 if p0 in (0, 2) else -1.0
+            per_tx.append((d0 + sgn * d1) / (2 * scaling))
+        h_cols.append(torch.stack(per_tx, dim=-1))          # (S, Nr, RE, NL)
+    return torch.stack(h_cols, dim=1).transpose(2, 3)
 
 
 def make_uci_decoder(n_bits: int, e_uci: int, qm: int,
@@ -145,23 +168,8 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
     def core(fd, dm, scr_sign, llr_prev=None):
         s = fd.shape[0]
         dev = fd.device
-        # ---- LS estimation on DMRS REs (strided slices)
-        h_cols = []
-        for idx, sym in enumerate(symlist):
-            start = sym * n_sc + rb_start * 12
-            cseq = dm[:, idx].conj()                        # (S, rb*6)
-            per_tx = []
-            for tx in range(nl):
-                p0 = ports[tx] - 1000
-                delta = (p0 // 2) % 2
-                d0 = fd[:, :, start + delta: start + rb_size * 12: 4] \
-                    * cseq[:, None, 0::2]
-                d1 = fd[:, :, start + delta + 2: start + rb_size * 12: 4] \
-                    * cseq[:, None, 1::2]
-                sgn = 1.0 if p0 in (0, 2) else -1.0
-                per_tx.append((d0 + sgn * d1) / (2 * scaling))
-            h_cols.append(torch.stack(per_tx, dim=-1))      # (S, Nr, RE, NL)
-        h_ls = torch.stack(h_cols, dim=1).transpose(2, 3)
+        h_ls = ls_estimate(fd, dm, symlist, ports, nl, rb_start, rb_size,
+                           n_sc, scaling)
 
         # ---- channel estimation
         est = ce_batch.channel_est_batch(h_ls, rs_info, ce_config)

@@ -4,9 +4,13 @@ Port of python_5gtoolbox_tpu/rx/ce_jax.py (channel_est_batch,
 comp_data_batch; reference: py5gphy/channel_estimate/
 nr_channel_estimation.py and dft_dct_CE.py:10) with a leading slot axis.
 CE_config flags and shapes are plan-time; only the H_LS values are
-tensors. The DCT variants are not ported yet (the sweep uses DFT).
+tensors. The DCT models use the orthonormal DCT-II and its inverse as an
+L x L matrix made on the host in float64 (PyTorch has no DCT), applied
+to the real and imaginary planes.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -24,16 +28,68 @@ def _cis(ang: torch.Tensor) -> torch.Tensor:
     return torch.polar(torch.ones_like(ang), ang)
 
 
+@functools.lru_cache(maxsize=None)
+def _dct_matrix_np(L: int) -> np.ndarray:
+    """(L, L) orthonormal DCT-II: X = D @ x equals scipy.fft.dct(x,
+    norm="ortho"); its inverse (idct, norm="ortho") is D.T."""
+    k = np.arange(L)[:, None]
+    n = np.arange(L)[None, :]
+    d = np.cos(np.pi * k * (2 * n + 1) / (2 * L)) * np.sqrt(2.0 / L)
+    d[0] /= np.sqrt(2.0)
+    return d
+
+
+@functools.lru_cache(maxsize=32)
+def dct_matrix(L: int, dtype: torch.dtype, device: torch.device):
+    """The (L, L) orthonormal DCT-II matrix on the device, once per size,
+    built in float64 and cast to dtype."""
+    return torch.as_tensor(_dct_matrix_np(L), device=device).to(dtype)
+
+
+def dct_ortho(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Orthonormal DCT-II (or its inverse) along the last axis of a
+    complex tensor, on the real and imaginary planes."""
+    d = dct_matrix(x.shape[-1], x.real.dtype, x.device)
+    m = d if inverse else d.T
+    return torch.complex(x.real @ m, x.imag @ m)
+
+
+@functools.lru_cache(maxsize=64)
+def lsq_weights(x: tuple, x_new: tuple, dtype: torch.dtype,
+                device: torch.device):
+    """(w (n,), mean of x, x_new (m,)) of a deg-1 least-squares fit over
+    the static abscissae x, evaluated at x_new, on the device."""
+    xa = np.asarray(x, np.float64)
+    xm = xa.mean()
+    w = (xa - xm) / ((xa - xm) ** 2).sum()
+    return (torch.as_tensor(w, device=device).to(dtype), float(xm),
+            torch.as_tensor(np.asarray(x_new, np.float64),
+                            device=device).to(dtype))
+
+
 def _lsq_extend(x: np.ndarray, y: torch.Tensor, x_new: np.ndarray):
     """Batched deg-1 least squares along the last axis: y (..., n) over
     static x (n,), evaluated at static x_new (m,) -> (..., m)."""
-    x = np.asarray(x, np.float64)
-    xm = x.mean()
-    w = ((x - xm) / float(((x - xm) ** 2).sum())).astype(np.float32)
-    slope = torch.einsum("...n,n->...", y, _t(w, y).to(y.dtype))
-    intercept = y.mean(dim=-1) - slope * float(xm)
-    xn = _t(np.asarray(x_new, np.float32), y)
+    w, xm, xn = lsq_weights(tuple(np.asarray(x).tolist()),
+                            tuple(np.asarray(x_new).tolist()),
+                            torch.float32, y.device)
+    slope = torch.einsum("...n,n->...", y, w.to(y.dtype))
+    intercept = y.mean(dim=-1) - slope * xm
     return intercept[..., None] + slope[..., None] * xn
+
+
+@functools.lru_cache(maxsize=32)
+def interp_tables(L: int, rd: int, dtype: torch.dtype,
+                  device: torch.device):
+    """(idx, next, frac) of the uniform-stride linear interpolation of L
+    samples to L * rd points (np.interp clamps past the last sample)."""
+    xnew = np.arange(L * rd)
+    idx = np.minimum(xnew // rd, L - 1)
+    nxt = np.minimum(idx + 1, L - 1)
+    frac = np.where(idx == L - 1, 0.0, (xnew % rd) / rd)
+    return (torch.as_tensor(idx, device=device),
+            torch.as_tensor(nxt, device=device),
+            torch.as_tensor(frac, device=device).to(dtype))
 
 
 def _zero_stuff(x: torch.Tensor, rd: int, start: int, total: int):
@@ -108,7 +164,7 @@ def channel_est_batch(h_ls: torch.Tensor, rs_info: dict, ce_config: dict):
             fo_applied = True
             h_ls = _fo_comp(h_ls, fo, sym_offs[rs_map], rd, scs)
 
-    h_result, cov = _dft_batch(h_ls, rs_info, ce_config)
+    h_result, cov = _dft_dct_batch(h_ls, rs_info, ce_config)
     return dict(H=h_result, cov=cov, to_avg=to_avg, fo=fo,
                 fo_applied=fo_applied)
 
@@ -133,26 +189,25 @@ def _time_interp(arr: torch.Tensor, rs_map: np.ndarray) -> torch.Tensor:
     s, n_sym = arr.shape[0], arr.shape[1]
     if n_sym == 1:
         return arr.expand((s, 14) + tuple(arr.shape[2:]))
-    x = np.asarray(rs_map, np.float64)
-    xm = x.mean()
-    w = ((x - xm) / float(((x - xm) ** 2).sum())).astype(np.float32)
+    w, xm, t = lsq_weights(tuple(np.asarray(rs_map, np.float64).tolist()),
+                           tuple(range(14)), torch.float32, arr.device)
     flat = arr.reshape(s, n_sym, -1)
-    slope = torch.einsum("snk,n->sk", flat, _t(w, arr).to(arr.dtype))
-    intercept = flat.mean(dim=1) - slope * float(xm)
-    t = _t(np.arange(14, dtype=np.float32)[:, None], arr)
-    out = intercept[:, None, :] + slope[:, None, :] * t
+    slope = torch.einsum("snk,n->sk", flat, w.to(arr.dtype))
+    intercept = flat.mean(dim=1) - slope * xm
+    out = intercept[:, None, :] + slope[:, None, :] * t[:, None]
     return out.reshape((s, 14) + tuple(arr.shape[2:]))
 
 
-def _dft_batch(h_ls: torch.Tensor, rs_info: dict, ce_config: dict):
-    """Batched dft_dct_channel_estimate (DFT model) -> (H (S, 14, RE*rd,
-    Nr, Nt), cov (S, 14, PRB, Nr, Nr))."""
+def _dft_dct_batch(h_ls: torch.Tensor, rs_info: dict, ce_config: dict):
+    """Batched dft_dct_channel_estimate -> (H (S, 14, RE*rd, Nr, Nt), cov
+    (S, 14, PRB, Nr, Nr))."""
     s, sym_num, re_num, nr, nt = h_ls.shape
     rd = int(rs_info["RE_distance"])
     scs = int(rs_info["scs"])
     algo = ce_config["CE_algo"]
-    if algo.replace("_symmetric", "") != "DFT":
-        raise NotImplementedError(f"CE algo {algo!r} is not ported yet")
+    model = algo.replace("_symmetric", "")
+    if model not in ("DFT", "DCT"):
+        raise ValueError(f"unsupported CE algo {algo}")
     symmetric = algo.endswith("_symmetric")
     ek = int(ce_config["eRB"]) * 12 // rd
     right_ek = ek + (re_num + ek) % 2
@@ -169,8 +224,11 @@ def _dft_batch(h_ls: torch.Tensor, rs_info: dict, ce_config: dict):
     if symmetric:
         ext = torch.cat([ext, ext.flip(-1)], dim=1)
     L = ext.shape[-1]
-    h_sym = torch.fft.ifft(torch.fft.ifftshift(ext, dim=-1), dim=-1) \
-        * np.sqrt(L)
+    if model == "DFT":
+        h_sym = torch.fft.ifft(torch.fft.ifftshift(ext, dim=-1), dim=-1) \
+            * np.sqrt(L)
+    else:
+        h_sym = dct_ortho(ext)
     fs_tap = scs * 1000 * rd * L
     l_l = int(float(ce_config["L_symm_left_in_ns"]) * 1e-9 * fs_tap)
     if symmetric:
@@ -187,15 +245,15 @@ def _dft_batch(h_ls: torch.Tensor, rs_info: dict, ce_config: dict):
     zero = torch.zeros_like(h_sym)
     h_sym = torch.where(h_sym.abs() < torch.sqrt(mid_p / 2), zero, h_sym)
     h_sym = torch.where(mid, zero, h_sym)
-    fd = torch.fft.fftshift(torch.fft.fft(h_sym, dim=-1), dim=-1) \
-        / np.sqrt(L)
+    if model == "DFT":
+        fd = torch.fft.fftshift(torch.fft.fft(h_sym, dim=-1), dim=-1) \
+            / np.sqrt(L)
+    else:
+        fd = dct_ortho(h_sym, inverse=True)
     # uniform-stride linear interpolation to every RE (static indices)
-    xnew = np.arange(L * rd)
-    idx = np.minimum(xnew // rd, L - 1)
-    nxt = np.minimum(idx + 1, L - 1)
-    frac = np.where(idx == L - 1, 0.0, (xnew % rd) / rd).astype(np.float32)
-    fi, fn = fd[:, _t(idx, fd)], fd[:, _t(nxt, fd)]
-    full = fi + _t(frac, fd)[None, :] * (fn - fi)
+    idx, nxt, frac = interp_tables(L, rd, torch.float32, fd.device)
+    fi, fn = fd[:, idx], fd[:, nxt]
+    full = fi + frac[None, :] * (fn - fi)
     sl = full[:, ek * rd: ek * rd + rd * re_num]
     h_est = sl.reshape(s, sym_num, nr, nt, rd * re_num).movedim(4, 2
                                                                ).to(

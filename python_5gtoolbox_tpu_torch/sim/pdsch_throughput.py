@@ -1,11 +1,14 @@
-"""PDSCH link-level throughput sweep (TX -> fading channel -> batched RX).
+"""PDSCH link-level throughput sweep (TX -> fading channel -> RX).
 
 Port of scripts/internal/sim_pdsch_throughput_internal.py
-(pdsch_before_ceq_processing with do_ce=False, run_pdsch_throughput with
-use_batch=True): per SNR point, the slot-batched TX waveform, the channel
-filter, the fading channel with AWGN, the RX filter and low-PHY, then one
-slot-batched RX call per equalizer. Everything stays on the device; the
-decode flags of all points come back in one transfer at the end. With
+(pdsch_before_ceq_processing, run_pdsch_throughput): per SNR point, the
+slot-batched TX waveform, the channel filter, the fading channel with
+AWGN, the RX filter and low-PHY, then per equalizer either one
+slot-batched RX call (use_batch=True) or the reference-shaped per-slot
+loop (H_LS_est -> rx/channel_estimate.py:NrChannelEstimation ->
+RX_process, the rv cycle restarted per equalizer), which HARQ studies
+need. Everything stays on the device; the decode flags of all points
+come back in one transfer at the end. With
 carrier_config["samplerate_in_mhz"] set (245.76 for the fixed output
 rate) the waveform goes through the fused DUC, the channel runs at that
 rate and the RX through the DDC. Also the OFDM + DUC run of the
@@ -22,6 +25,8 @@ from python_5gtoolbox_tpu_torch import resolve_device
 from python_5gtoolbox_tpu_torch.models import channel as chan_mod
 from python_5gtoolbox_tpu_torch.ops import filters
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch
+from python_5gtoolbox_tpu_torch.rx.channel_estimate import (
+    NrChannelEstimation, fo_est_valid_for_doppler)
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          fft_size,
                                                          slots_per_frame)
@@ -34,20 +39,42 @@ DEFAULT_CE_CONFIG = dict(enable_TO_comp=True, enable_FO_est=True,
                          eRB=2)
 DEFAULT_LDPC_CONFIG = dict(L=16, algo="min-sum", alpha=1.0, beta=0.0)
 
-# rx/channel_estimate.py of the JAX package: above this fraction of the
-# subcarrier spacing the FO estimator reads fading rotation as CFO
-FO_EST_FM_LIMIT_FRACTION = 0.002
-
-
-def fo_est_valid_for_doppler(fm_hz: float, scs: int) -> bool:
-    """True if freq_offset_est's error floor is acceptable at this f_m."""
-    return fm_hz <= FO_EST_FM_LIMIT_FRACTION * scs * 1000.0
-
-
 class _NullProfiler:
     @contextlib.contextmanager
     def stage(self, name):
         yield
+
+
+def slot_estimates(obj, slots, rx_fd, alloc, ce_config, prof=None):
+    """The per-slot channel estimation of the reference's loop: for each
+    allocated slot index in alloc, H_LS_est and NrChannelEstimation on
+    the device -> [(rx_slot (Nr, 14*n_sc), slot, H, cov, est)], each
+    charged to prof's channel_est stage."""
+    prof = prof or _NullProfiler()
+    slot_size = rx_fd.shape[1] // len(slots)
+    out = []
+    for i in alloc:
+        rx_slot = rx_fd[:, i * slot_size: (i + 1) * slot_size]
+        with prof.stage("channel_est"):
+            h_ls, rs_info = obj.H_LS_est(rx_slot, slots[i])
+            est = NrChannelEstimation(h_ls, rs_info, dict(ce_config))
+            H, cov = est.channel_est()
+        out.append((rx_slot, slots[i], H, cov, est))
+    return out
+
+
+def rx_slots(obj, estimates, algo, ldpc_config, prof=None, **rx_kw):
+    """RX_process of every (rx_slot, slot, H, cov, est) in order, the rv
+    cycle restarted (rvidx -1) -> the list of RX_process results, each
+    charged to prof's rx_process[<algo>] stage."""
+    prof = prof or _NullProfiler()
+    obj.rvidx = -1
+    out = []
+    for rx_slot, slot, H, cov, est in estimates:
+        with prof.stage(f"rx_process[{algo}]"):
+            out.append(obj.RX_process(rx_slot, slot, {"algo": algo}, H, cov,
+                                      ldpc_config, est, **rx_kw))
+    return out
 
 
 def bench_link_level_config():
@@ -177,27 +204,33 @@ def pdsch_before_ceq_processing(carrier_config, pdsch_config, chan_cfg,
 def run_pdsch_throughput(carrier_config, pdsch_config, chan_cfg,
                          snr_db_list, ceq_algo_list, n_slots=2,
                          ce_config=None, ldpc_config=None, seed=0,
-                         device=None, states=None, prof=None):
+                         prof=None, use_batch=True, device=None,
+                         states=None):
     """-> dict algo -> [TB pass-rate per SNR] (+ 'tbs_bits').
 
-    Each SNR point i draws a fresh channel trajectory from seed +
-    7919 * i (as the JAX sweep does); states, one dict per SNR point,
-    replaces the draws. device None -> cuda. prof as in
-    pdsch_before_ceq_processing, plus an rx_batch[<algo>] stage.
+    use_batch=True runs the whole RX, CE included, as one slot-batched
+    call per (SNR, equalizer); False runs the reference-shaped per-slot
+    loop (slot_estimates, then rx_slots per equalizer), the path HARQ
+    studies need. Each SNR point i draws a fresh channel trajectory from
+    seed + 7919 * i (as the JAX sweep does); states, one dict per SNR
+    point, replaces the draws. device None -> cuda. prof as in
+    pdsch_before_ceq_processing, plus rx_batch[<algo>] or channel_est
+    and rx_process[<algo>] stages.
     """
     return run_sweep("PDSCH", pdsch_before_ceq_processing, carrier_config,
                      pdsch_config, chan_cfg, snr_db_list, ceq_algo_list,
                      n_slots, ce_config, ldpc_config, seed, device, states,
-                     prof)
+                     prof, use_batch=use_batch)
 
 
 def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
               snr_db_list, ceq_algo_list, n_slots, ce_config, ldpc_config,
-              seed, device, states, prof):
+              seed, device, states, prof, use_batch=True, rx_kw=None):
     """The SNR loop of the PDSCH and PUSCH sweeps: before_ceq (the
     sweep's *_before_ceq_processing) makes each point's channel object,
-    slot numbers and rx_fd (Nr, S*14*n_sc) from seed + 7919 * i, then one
-    slot-batched RX call per equalizer on the allocated slots leaves the
+    slot numbers and rx_fd (Nr, S*14*n_sc) from seed + 7919 * i, then per
+    equalizer one slot-batched RX call on the allocated slots
+    (use_batch) or the per-slot loop (RX_process with rx_kw) leaves the
     flags on the device; the flags of all points come back in one
     transfer at the end and print as '<label> snr=...' lines."""
     dev = resolve_device(device)
@@ -218,18 +251,26 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
         if not alloc:
             pending.append((snr, 0, None))
             continue
+        oks = {}
+        if not use_batch:
+            ests = slot_estimates(obj, slots, rx_fd, alloc, ce_cfg, prof_)
+            for algo in ceq_algo_list:
+                outs = rx_slots(obj, ests, algo, ldpc_config, prof_,
+                                **(rx_kw or {}))
+                oks[algo] = torch.stack([o[0] for o in outs])
+            pending.append((snr, len(alloc), oks))
+            continue
         nr_ant = rx_fd.shape[0]
         slot_size = rx_fd.shape[1] // n_slots
         full = rx_fd.reshape(nr_ant, n_slots, slot_size).transpose(0, 1)
         rx_stack = full if len(alloc) == n_slots else \
             full[torch.as_tensor(alloc, device=dev)]
         obj.rvidx = -1
-        oks = {}
         for algo in ceq_algo_list:
             with prof_.stage(f"rx_batch[{algo}]"):
                 oks[algo], _ = obj.rx_process_batch(
                     rx_stack, [slots[i] for i in alloc], {"algo": algo},
-                    ldpc_config, ce_cfg, fetch=False)
+                    ldpc_config, ce_cfg, fetch=False)[:2]
         pending.append((snr, len(alloc), oks))
 
     chunks = [oks[a] for _, _, oks in pending if oks for a in ceq_algo_list]
@@ -247,3 +288,55 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
                   f"TB passed")
     results["tbs_bits"] = obj.tbsize
     return results
+
+
+def harq_chains(carrier, pdsch_config, ce, ldpc, rv_cycle, pnoise_db,
+                n_slots, algo="MMSE-IRC", device=None, seed=101):
+    """A HARQ retransmission study over AWGN: transmission t sends every
+    slot with rv_cycle[t] (noise seeded seed + t); the slot-batched chain
+    (rx_process_batch with rv=, llr_prev=) and the per-slot chain
+    (RX_process with HARQ_on, one receiver per slot) each combine the
+    transmissions -> (ok_batched (T, S), ok_per_slot (T, S)) numpy
+    bool."""
+    dev = resolve_device(device)
+    scs = carrier["scs"]
+    prb = carrier_prb_size(scs, carrier["BW"])
+    fs = fft_size(prb) * scs * 1000.0
+    wf = dict(numofslots=n_slots, startSFN=0, startslot=0,
+              samplerate_in_mhz=fs / 1e6)
+    chan = chan_mod.gen_channel_model_config(
+        model_format="AWGN", Nt=carrier["num_of_ant"], Nr=carrier["Nr"])
+    stacks = []
+    for t, rv in enumerate(rv_cycle):
+        tx = Pdsch(dict(pdsch_config, rv=[rv]), carrier, device=dev)
+        _, _, dl, _ = dl_wf.gen_dl_waveform(wf, carrier, nrPdsch_list=[tx])
+        model = chan_mod.NrChannelModel(
+            chan, pnoise_db, carrier["carrier_frequency_in_mhz"] * 1e6, fs,
+            scs, seed=seed + t, device=dev)
+        _, rx_fd = rx_wf.waveform_rx_processing(model.filter(dl), carrier,
+                                                fs)
+        stacks.append(rx_fd.reshape(carrier["Nr"], n_slots, -1)
+                      .transpose(0, 1))
+    rx_b = Pdsch(dict(pdsch_config, rv=list(rv_cycle)), carrier, device=dev)
+    ok_b, llr = [], None
+    for t, rv in enumerate(rv_cycle):
+        ok, _, llr = rx_b.rx_process_batch(
+            stacks[t], list(range(n_slots)), {"algo": algo}, ldpc, ce,
+            fetch=False, rv=rv, llr_prev=llr, return_llr=True)
+        ok_b.append(ok)
+    ok_s = []
+    for i in range(n_slots):
+        rx_i = Pdsch(dict(pdsch_config, rv=list(rv_cycle)), carrier,
+                     device=dev)
+        prev, oks = None, []
+        for t in range(len(rv_cycle)):
+            h_ls, info = rx_i.H_LS_est(stacks[t][i], i)
+            est = NrChannelEstimation(h_ls, info, dict(ce))
+            H, cov = est.channel_est()
+            ok, _, prev = rx_i.RX_process(stacks[t][i], i, {"algo": algo},
+                                          H, cov, ldpc, est, HARQ_on=True,
+                                          current_LLr_dns=prev)
+            oks.append(ok)
+        ok_s.append(torch.stack(oks))
+    return (torch.stack(ok_b).cpu().numpy(),
+            torch.stack(ok_s, dim=1).cpu().numpy())

@@ -3,7 +3,7 @@ time on the card.
 
     python -m python_5gtoolbox_tpu_torch.sim.profile_sweep \
         [--rate-mhz 245.76] [--small-alloc | --pusch | --testmodel TM]
-        [TRACE.json]
+        [--per-slot] [TRACE.json]
 
 Runs the bench configuration (pdsch_throughput.bench_link_level_config,
 6 SNR points x 20 slots; with --small-alloc its small allocation,
@@ -13,8 +13,10 @@ rate) twice after one warm run, at the carrier rate or, with --rate-mhz,
 with the waveform, the channel and the RX front end at that sample rate,
 and prints one JSON line each:
   * "stages": host wall time per stage of the sweep (tx_waveform,
-    channel, rx_lowphy, rx_batch[MMSE-IRC]), each stage ended by
-    torch.cuda.synchronize();
+    channel, rx_lowphy, rx_batch[MMSE-IRC]; with --per-slot the
+    reference-shaped per-slot RX in place of the batched one:
+    channel_est and rx_process[MMSE-IRC], charged slot by slot), each
+    stage ended by torch.cuda.synchronize();
   * "kernels": torch.profiler device time per kernel over one sweep
     without stage synchronisation, the sweep's wall time and the share
     of it the device was busy; with a path argument the Chrome trace of
@@ -57,21 +59,27 @@ PORT_KERNELS = ("banded_fir_kernel", "ldpc::decode_kernel",
 
 
 class SyncStageTimer:
-    """sim prof= hook: wall seconds per stage, device synchronised at the
-    end of each stage so that a stage is charged for its own kernels."""
+    """sim prof= hook: wall seconds and calls per stage, the card
+    synchronised at the end of each stage so that a stage is charged for
+    its own kernels (device "cpu": nothing to synchronise)."""
 
-    def __init__(self):
+    def __init__(self, device="cuda"):
         self.seconds = collections.defaultdict(float)
+        self.calls = collections.defaultdict(int)
+        self.sync = torch.device(device).type == "cuda"
 
     @contextlib.contextmanager
     def stage(self, name):
         t0 = time.perf_counter()
         yield
-        torch.cuda.synchronize()
+        if self.sync:
+            torch.cuda.synchronize()
         self.seconds[name] += time.perf_counter() - t0
+        self.calls[name] += 1
 
 
-def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False):
+def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False,
+               per_slot=False):
     if pusch:
         carrier, ch_cfg, chan, ce, ldpc = \
             usim.bench_link_level_pusch_tp_config()
@@ -85,7 +93,7 @@ def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False):
         carrier["samplerate_in_mhz"] = rate_mhz
     return run(carrier, ch_cfg, chan, SNRS, ["MMSE-IRC"], n_slots=N_SLOTS,
                ce_config=ce, ldpc_config=ldpc, seed=3, device="cuda",
-               prof=prof)
+               prof=prof, use_batch=not per_slot)
 
 
 def _run_testmodel(tm: str, prof=None):
@@ -109,21 +117,26 @@ def main() -> None:
                          "only)")
     ap.add_argument("--testmodel", default=None,
                     help="a test model at full width in place of the sweep")
+    ap.add_argument("--per-slot", action="store_true",
+                    help="the per-slot RX (channel_est, rx_process) in "
+                         "place of the slot-batched one")
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
     if (args.pusch or args.testmodel) and (args.rate_mhz is not None
                                            or args.small_alloc):
         ap.error("--pusch and --testmodel run at the carrier rate on their "
                  "own allocation")
+    if args.per_slot and args.testmodel:
+        ap.error("--per-slot profiles a sweep, not a test model")
     rate, small, pusch = args.rate_mhz, args.small_alloc, args.pusch
-    tm = args.testmodel
+    tm, per_slot = args.testmodel, args.per_slot
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     def run(prof=None):
         if tm:
             return _run_testmodel(tm, prof)
-        return _run_sweep(rate, prof, small, pusch)
+        return _run_sweep(rate, prof, small, pusch, per_slot)
     run()                                                # warm
     timer = SyncStageTimer()
     t0 = time.perf_counter()
@@ -132,7 +145,7 @@ def main() -> None:
     total = sum(timer.seconds.values())
     print(json.dumps(dict(
         phase="stages", rate_mhz=rate, small_alloc=small, pusch=pusch,
-        testmodel=tm, wall_s=wall,
+        testmodel=tm, per_slot=per_slot, wall_s=wall,
         seconds=timer.seconds,
         share={k: v / total for k, v in timer.seconds.items()})), flush=True)
 
@@ -164,7 +177,7 @@ def main() -> None:
     host.sort(key=lambda r: -r["self_cpu_ms"])
     print(json.dumps(dict(
         phase="kernels", rate_mhz=rate, small_alloc=small, pusch=pusch,
-        testmodel=tm, wall_s=wall,
+        testmodel=tm, per_slot=per_slot, wall_s=wall,
         device_busy_s=busy,
         device_busy_share=busy / wall,
         launches=sum(r["calls"] for r in rows), n_kernel_names=len(rows),

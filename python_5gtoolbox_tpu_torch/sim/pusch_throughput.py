@@ -1,17 +1,16 @@
-"""PUSCH link-level throughput sweep (TX -> fading channel -> batched RX).
+"""PUSCH link-level throughput sweep (TX -> fading channel -> RX).
 
-Port of the batched part of scripts/internal/sim_pusch_throughput_internal.py
-(can_batch_pusch_rx, pusch_before_ceq_processing with do_ce=False,
-run_pusch_throughput with use_batch=True): per SNR point, the
-slot-batched UL waveform (NrPUSCH.tx_grid_batch through
-filters.tx_lowphy_duc), the fading channel with AWGN, the RX filter and
-low-PHY, then one slot-batched RX call per equalizer, CP-OFDM or
-DFT-s-OFDM. Everything stays on the device; the decode flags of all
+Port of scripts/internal/sim_pusch_throughput_internal.py
+(can_batch_pusch_rx, pusch_before_ceq_processing, run_pusch_throughput):
+per SNR point, the UL waveform (slot-batched through
+filters.tx_lowphy_duc, or per slot with UCI), the fading channel with
+AWGN, the RX filter and low-PHY, then per equalizer one slot-batched RX
+call (CP-OFDM or DFT-s-OFDM without UCI) or the per-slot loop
+(H_LS_est -> NrChannelEstimation -> NrPUSCH.RX_process, decoding the
+UCI streams with decode_uci), to which the JAX sweep sends every UCI
+configuration. Everything stays on the device; the decode flags of all
 points come back in one transfer at the end (the SNR loop is
-pdsch_throughput.run_sweep). The per-slot RX (use_batch=False), to
-which the JAX sweep sends every UCI configuration, is not ported (Queue
-A item 4): a UCI configuration or decode_uci=True raises. (The batched
-RX decodes UCI on its own: NrPUSCH.rx_process_batch.)
+pdsch_throughput.run_sweep).
 """
 from __future__ import annotations
 
@@ -120,25 +119,23 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
 def run_pusch_throughput(carrier_config, pusch_config, chan_cfg,
                          snr_db_list, ceq_algo_list, n_slots=2,
                          ce_config=None, ldpc_config=None, seed=0,
-                         decode_uci=False, use_batch=None, device=None,
-                         states=None, prof=None):
+                         decode_uci=False, use_batch=None, prof=None,
+                         device=None, states=None):
     """-> dict algo -> [TB pass-rate per SNR] (+ 'tbs_bits').
 
-    The batched RX only: use_batch None picks it where the config
-    supports it (can_batch_pusch_rx) and no UCI decode is asked for;
-    otherwise NotImplementedError. Each SNR point i draws from seed +
-    7919 * i (as the JAX sweep does); states, one dict per SNR point,
-    replaces the draws. device None -> cuda. prof as in
-    pusch_before_ceq_processing, plus an rx_batch[<algo>] stage.
+    use_batch None picks the slot-batched RX where the config supports
+    it (can_batch_pusch_rx) and no UCI decode is asked for, else the
+    per-slot RX_process loop (decode_uci decodes the UCI streams there).
+    Each SNR point i draws from seed + 7919 * i (as the JAX sweep does);
+    states, one dict per SNR point, replaces the draws. device None ->
+    cuda. prof as in pusch_before_ceq_processing, plus rx_batch[<algo>]
+    or channel_est and rx_process[<algo>] stages.
     """
     if use_batch is None:
         use_batch = can_batch_pusch_rx(pusch_config, ceq_algo_list) \
             and not decode_uci
-    if not use_batch or decode_uci:
-        raise NotImplementedError("only the slot-batched PUSCH RX without "
-                                  "UCI is ported in the sweep (the per-slot "
-                                  "RX that UCI sweeps take: Queue A item 4)")
     return run_sweep("PUSCH", pusch_before_ceq_processing, carrier_config,
                      pusch_config, chan_cfg, snr_db_list, ceq_algo_list,
                      n_slots, ce_config, ldpc_config, seed, device, states,
-                     prof)
+                     prof, use_batch=use_batch,
+                     rx_kw=dict(decode_uci=decode_uci))

@@ -3,7 +3,9 @@ plain PyTorch version (the two LDPC kernels in every schedule and check
 node), the sweeps through them, the plain-PyTorch polar decoder (a
 CUDA graph on the card), its study and UCI on PUSCH against the CPU, and
 the multi-channel DL waveforms (a full-width test model, all four DL
-channels at 245.76 Msps, the standalone SSB waveform).
+channels at 245.76 Msps, the standalone SSB waveform), and the receiver
+breadth against the CPU (the per-slot RX, the ML equalizers, the DCT CE,
+the TDL channel with pinned taps).
 
 Marked `cuda`; every test skips (from the `cuda_device` fixture) where
 torch sees no CUDA device. On the card (whose Python has no jax, which
@@ -774,3 +776,158 @@ def test_ssb_waveform_gen_on_card(cuda_device):
     assert td.shape == td_cpu.shape == (2, 4 * 15 * 8192)
     assert (td.cpu() - td_cpu).abs().max() <= 1e-5
     assert td_cpu.abs().max() > 0
+
+
+# --- receiver breadth: per-slot RX, ML equalizers, DCT CE, TDL -------------
+
+def _bench_point(device, snr=20.0, n_slots=2, seed=3, state=None):
+    from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+        carrier, pdsch, chan, -snr, n_slots, seed=seed, device=device,
+        state=state)
+    return obj, slots, rx_fd, sim._ce_config(ce, chan, 30), ldpc
+
+
+def test_per_slot_rx_on_card_matches_cpu(cuda_device):
+    """The per-slot RX (H_LS_est, NrChannelEstimation, RX_process with
+    MMSE-IRC and ML2-IRC-soft) on the same received slots (the card's
+    front end on pinned blocks): flags and TB bits card == CPU, one
+    ldpc_minsum launch per slot."""
+    from python_5gtoolbox_tpu_torch.interop import state_from_numpy
+    from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch
+    from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+    blocks = np.random.default_rng(1).integers(0, 2, (2, 3240),
+                                               dtype=np.int8)
+    obj, slots, rx_fd, ce, ldpc = _bench_point(
+        cuda_device, snr=0.0, state=state_from_numpy(trblks=blocks,
+                                                     device=cuda_device))
+    cpu = Pdsch(obj.cfg, obj.carrier, device="cpu")
+    for algo in ("MMSE-IRC", "ML2-IRC-soft"):
+        before = kernels.LAUNCHES["ldpc_minsum_flooded"]
+        card = sim.rx_slots(obj, sim.slot_estimates(obj, slots, rx_fd, [0, 1],
+                                                    ce), algo, ldpc)
+        assert kernels.LAUNCHES["ldpc_minsum_flooded"] == before + 2
+        host = sim.rx_slots(cpu, sim.slot_estimates(cpu, slots, rx_fd.cpu(),
+                                                    [0, 1], ce), algo, ldpc)
+        for a, b in zip(card, host):
+            assert bool(a[0]) == bool(b[0])
+            assert torch.equal(a[1].cpu(), b[1])
+
+
+def test_per_slot_rx_numpy_input_goes_to_the_card(cuda_device):
+    """The per-slot RX functions given numpy run on the card, as every
+    entry point's default device: the LS estimate of one bench slot
+    equals the one from a CPU tensor, and the resource copy, the channel
+    estimate and the DL-SCH / UL-SCH / UCI decodes return card tensors."""
+    from python_5gtoolbox_tpu_torch.phy import pdsch_rx as drx
+    from python_5gtoolbox_tpu_torch.phy import pusch_rx as urx
+    from python_5gtoolbox_tpu_torch.rx.channel_estimate import \
+        NrChannelEstimation
+    obj, slots, rx_fd, ce, ldpc = _bench_point(cuda_device, snr=20.0,
+                                               n_slots=1)
+    rx = rx_fd.cpu().numpy()
+    h, info = drx.pdsch_dmrs_ls_est(rx, obj.cfg, slots[0])
+    h_ref, _ = drx.pdsch_dmrs_ls_est(torch.as_tensor(rx), obj.cfg, slots[0])
+    assert h.is_cuda and h_ref.device.type == "cpu"
+    assert (h.cpu() - h_ref).abs().max() <= 1e-5 * h_ref.abs().max()
+    assert drx.copy_rx_pdsch_resource(rx, obj.cfg)[0].is_cuda
+    H, cov = NrChannelEstimation(h_ref.numpy(), dict(info, scs=30),
+                                 dict(ce)).channel_est()
+    assert H.is_cuda and cov.is_cuda
+    llr = np.zeros(2304, np.float32)
+    for out in (drx.dlsch_decode(llr, 2536, 2, 193, 1, 0, 10 ** 9, ldpc),
+                urx.ulsch_decode(llr, 2536, 2, 193, 1, 0, ldpc)):
+        assert out[0].is_cuda and out[1].is_cuda and out[2].is_cuda
+    assert urx.decode_uci_on_ulsch(np.zeros(64, np.float32), 5, 2)[0].is_cuda
+
+
+def test_ml_equalizers_on_card_match_cpu(cuda_device):
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    rng = np.random.default_rng(2)
+    n, nr, nl = 300, 4, 2
+    h = (rng.normal(size=(n, nr, nl)) + 1j * rng.normal(size=(n, nr, nl)))
+    s = np.exp(2j * np.pi * rng.integers(4, size=(n, nl)) / 4 + 0.25j * np.pi)
+    y = np.einsum("nrl,nl->nr", h, s) + 0.1 * (
+        rng.normal(size=(n, nr)) + 1j * rng.normal(size=(n, nr)))
+    a = 0.2 * (rng.normal(size=(n, nr, nr)) + 1j * rng.normal(size=(n, nr, nr)))
+    cov = a @ a.conj().transpose(0, 2, 1) / 8 + 0.05 * np.eye(nr)
+    args = [v.astype(np.complex64) for v in (y, h, cov)]
+    for algo in teq.ML_EQUALIZERS:
+        for mod in ("qpsk", "16qam"):
+            card = teq.channel_equ_and_demod(*args, mod, {"algo": algo},
+                                             device=cuda_device)
+            host = teq.channel_equ_and_demod(*args, mod, {"algo": algo},
+                                             device="cpu")
+            assert torch.equal(card[2].cpu(), host[2]), (algo, mod)
+            assert (card[3].cpu() - host[3]).abs().max() \
+                <= 1e-3 * host[3].abs().max(), (algo, mod)
+
+
+@pytest.mark.parametrize("algo", ["DCT", "DCT_symmetric"])
+def test_dct_ce_on_card_matches_cpu(cuda_device, algo):
+    from python_5gtoolbox_tpu_torch.rx import ce_batch
+    from python_5gtoolbox_tpu_torch.rx.channel_estimate import \
+        NrChannelEstimation
+    obj, slots, rx_fd, ce, _ = _bench_point(cuda_device, snr=10.0, n_slots=1)
+    h_ls, info = obj.H_LS_est(rx_fd, slots[0])
+    cfg = dict(ce, CE_algo=algo)
+    for kind in ("per_slot", "batched"):
+        got = []
+        for dev in (cuda_device, "cpu"):
+            h = h_ls.to(dev)
+            if kind == "per_slot":
+                H, cov = NrChannelEstimation(h, dict(info), dict(cfg)) \
+                    .channel_est()
+            else:
+                out = ce_batch.channel_est_batch(h[None], info, dict(cfg))
+                H, cov = out["H"][0], out["cov"][0]
+            got.append((H.cpu(), cov.cpu()))
+        for a, b in zip(*got):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max(), kind
+
+
+def test_tdl_filter_on_card_matches_cpu(cuda_device):
+    from python_5gtoolbox_tpu_torch.models import channel as chan_mod
+    from python_5gtoolbox_tpu_torch.interop import state_from_numpy
+    cfg = chan_mod.gen_channel_model_config(
+        model_format="TDL-A", Nt=1, Nr=2, fm_inHz=200, DSdesired=30,
+        Rspat_config=("low", "uniform", "UL", (0, 0)))
+    n, fs = 30720, 30.72e6
+    gen = torch.Generator().manual_seed(4)
+    taps = [chan_mod.gen_mimo_channel(gen, 1, 2, np.asarray(cfg["Rspat"]), n,
+                                      fs, p[2], p[3], p[4], 200, 30).numpy()
+            for p in cfg["multi_paths"]]
+    rng = np.random.default_rng(5)
+    noise = (rng.standard_normal((2, n)), rng.standard_normal((2, n)))
+    tx = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
+          ).astype(np.complex64)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        st = state_from_numpy(taps=taps, noise=noise, device=dev)
+        model = chan_mod.NrChannelModel(cfg, -10.0, 3.5e9, fs, 30, device=dev)
+        out.append(model.filter(torch.as_tensor(tx, device=dev),
+                                taps=st["taps"], noise=st["noise"]).cpu())
+    assert (out[0] - out[1]).abs().max() <= 1e-5 * out[1].abs().max()
+
+
+def test_ml_irc_whitening_in_eigh_batches_on_card(cuda_device):
+    """More 4x4 covariances than one cuSOLVER batched eigh takes
+    (equalize.EIGH_BATCH at a time): ML-IRC hard bits and LLRs card ==
+    CPU."""
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    rng = np.random.default_rng(3)
+    n, nr, nl = 2 * teq.EIGH_BATCH + 100, 4, 2
+    h = rng.normal(size=(n, nr, nl)) + 1j * rng.normal(size=(n, nr, nl))
+    s = np.exp(2j * np.pi * rng.integers(4, size=(n, nl)) / 4 + 0.25j * np.pi)
+    y = np.einsum("nrl,nl->nr", h, s) + 0.1 * (
+        rng.normal(size=(n, nr)) + 1j * rng.normal(size=(n, nr)))
+    a = 0.2 * (rng.normal(size=(n, nr, nr)) + 1j * rng.normal(size=(n, nr, nr)))
+    cov = a @ a.conj().transpose(0, 2, 1) / 8 + 0.05 * np.eye(nr)
+    args = [v.astype(np.complex64) for v in (y, h, cov)]
+    card = teq.channel_equ_and_demod(*args, "qpsk", {"algo": "ML-IRC-soft"},
+                                     device=cuda_device)
+    host = teq.channel_equ_and_demod(*args, "qpsk", {"algo": "ML-IRC-soft"},
+                                     device="cpu")
+    assert torch.equal(card[2].cpu(), host[2])
+    assert (card[3].cpu() - host[3]).abs().max() <= 1e-3 * host[3].abs().max()

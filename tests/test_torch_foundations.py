@@ -64,7 +64,8 @@ DATA_FILES = ["configs/default_dl_carrier_config.json",
               "configs/default_ul_waveform_config.json",
               "data/ldpc_basegraphs.npz",
               "data/lowpapr_phi.npz",
-              "data/polar_reliability.npz"]
+              "data/polar_reliability.npz",
+              "data/tdl_profiles.npz"]
 
 
 @pytest.mark.parametrize("rel", DATA_FILES)
@@ -232,7 +233,11 @@ def test_port_sources_import_no_jax():
                 "sim/polar_decoder.py", "phy/validate.py", "phy/dci.py",
                 "phy/ssb.py", "phy/csirs.py", "phy/pdcch.py",
                 "phy/testmodel.py", "phy/csirs_report.py", "phy/grid.py",
-                "sim/gen_nr_testmodel.py"):
+                "sim/gen_nr_testmodel.py", "rx/channel_estimate.py",
+                "sim/examples.py", "sim/nr_pdsch_throughput_example.py",
+                "sim/nr_pdsch_ber_example.py",
+                "sim/nr_pusch_throughput_example.py",
+                "sim/nr_pusch_ber_example.py"):
         assert PORT / rel in files, rel
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

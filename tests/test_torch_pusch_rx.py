@@ -120,13 +120,16 @@ def test_rx_refuses_what_is_not_ported():
                          device="cpu")
     with pytest.raises(AssertionError):
         uci.rx_process_batch(rx, [0], {"algo": "MMSE-IRC"}, LDPC, CE)
-    with pytest.raises(NotImplementedError):
-        ch.RX_process(rx[0], 0)
+    # the per-slot RX takes what the batched RX refuses (ML with
+    # transform precoding, UCI); a slot the configuration does not
+    # allocate gives the JAX package's empty result
     assert not tsim.can_batch_pusch_rx(pusch, ["ML-soft"])
-    for kw in (dict(use_batch=False), dict(decode_uci=True)):
-        with pytest.raises(NotImplementedError):
-            tsim.run_pusch_throughput(carrier, pusch, _chan(1, 2)[1], [0.0],
-                                      ["MMSE-IRC"], device="cpu", **kw)
+    assert not tsim.can_batch_pusch_rx(uci.cfg)
+    gated = tpusch.NrPUSCH(carrier, dict(pusch, period_in_slot=2,
+                                         allocated_slots=[0]), device="cpu")
+    ok, tb, llr, dec = gated.RX_process(rx[0], 1, {"algo": "MMSE"}, None,
+                                        None, LDPC)
+    assert ok is False and tb.size == 0 and llr.size == 0 and dec == {}
 
 
 def test_sweep_front_end_matches_jax():

@@ -147,7 +147,7 @@ def test_decode_uci_on_ulsch_matches_jax(n_bits, E, qm):
         c = np.where(coded < 0, rng.integers(0, 2, E), coded)
         llr = ((1.0 - 2.0 * c) * 2.0 + rng.normal(size=E) * sigma
                ).astype(np.float32)
-        got, ok = trx.decode_uci_on_ulsch(llr, n_bits, qm)
+        got, ok = trx.decode_uci_on_ulsch(torch.as_tensor(llr), n_bits, qm)
         ref, ok_j = jrx.decode_uci_on_ulsch(llr, n_bits, qm)
         np.testing.assert_array_equal(got.numpy(), ref)
         assert ok == ok_j
@@ -161,7 +161,8 @@ def test_polar_uci_two_blocks_odd_roundtrip():
     payload gets a zero in front), N 1024 each; noiseless."""
     bits = np.random.default_rng(361).integers(0, 2, 361).astype(np.int8)
     coded = tuci.encode_uci_on_ulsch(bits, 361, 2200, 2)
-    got, ok = trx.decode_uci_on_ulsch((1.0 - 2.0 * coded) * 4.0, 361, 2)
+    got, ok = trx.decode_uci_on_ulsch(
+        torch.as_tensor((1.0 - 2.0 * coded) * 4.0), 361, 2)
     assert ok
     np.testing.assert_array_equal(got.numpy(), bits)
 
