@@ -41,6 +41,13 @@ then drives the port's paths through its entry points:
     DL channels together at 245.76 Msps (flat fused FIR + halfband, then
     one halfband stage), the standalone SSB waveform and the CSI report
     (plain PyTorch), each held against the plain chain or the CPU;
+  * UL control and PRACH: a PUSCH, PUCCH formats 0-4 and a 4-port SRS
+    through the composed gen_ul_waveform at full width (scs 30 / BW 100,
+    4 antennas, 20 slots at 245.76 Msps: the flat fused FIR + halfband),
+    gen_prach_waveform for a long and a short preamble at 245.76 Msps
+    (three banded_fir up2 stages with the 56-tap halfband, every SFN in
+    one launch), and sim/nr_csirs_report_example.py, each held against
+    the plain chain and the CPU;
   * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
     400 codewords per SNR point, six decoder settings) and the
     bit-flipping study's decode, and the decoder bench's shape
@@ -98,6 +105,7 @@ from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy import csirs_report  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.csirs import NrCSIRS  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
+from python_5gtoolbox_tpu_torch.phy import prach  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch_rx import copy_rx_pdsch_resource  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB  # noqa: E402
@@ -113,6 +121,7 @@ from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim  # noqa: E40
 from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tm_script  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import nr_pdsch_throughput_example as pdsch_ex  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import nr_pusch_throughput_example as pusch_ex  # noqa: E402
+from python_5gtoolbox_tpu_torch.sim import nr_csirs_report_example as csirs_ex  # noqa: E402
 from python_5gtoolbox_tpu_torch.utils.config import (  # noqa: E402
     get_default_config, merged)
 from python_5gtoolbox_tpu_torch.sim.time_ldpc_kernels import (  # noqa: E402
@@ -190,6 +199,48 @@ def _fir_plan_row(plan) -> dict:
                 smem_bytes=plan.smem_bytes)
 
 
+def _fir_row(x, taps, mode: str, label: str) -> dict:
+    """banded_fir on planes x against banded_fir_plain and the library
+    call; kernel and library timed as device time of back-to-back calls
+    (device_ms), the kernel also as consecutive calls with the host's
+    share (call_ms). Emits and returns the banded_fir line."""
+    p, t = x.shape
+    plan = filters.fir_plan(len(taps), mode, t, p, x.data_ptr() % 16 == 0)
+    got = filters.banded_fir(x, taps, mode)
+    ref = filters.banded_fir_plain(x, taps, mode)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape:
+        raise AssertionError(f"banded_fir {mode} shape {got.shape} "
+                             f"!= {ref.shape}")
+    err = (got - ref).abs().max().item()
+    if not err < FIR_TOL:
+        raise AssertionError(f"banded_fir {mode} {label}: max abs "
+                             f"error {err} >= {FIR_TOL}")
+
+    def run():
+        return filters.banded_fir(x, taps, mode)
+    k_ms, c_ms = device_ms(run, 20), call_ms(run, 20)
+    p_ms = call_ms(lambda: filters.banded_fir_plain(x, taps, mode), 10)
+    lib = _library_fir(x, taps, mode)
+    lib_out = lib()[:, 0, :got.shape[1]]
+    lib_err = (lib_out - ref[:, :lib_out.shape[1]]).abs().max().item()
+    if not lib_err < FIR_TOL or lib_out.shape[1] < got.shape[1] - 1:
+        raise AssertionError(f"library FIR {mode} {label}: not the "
+                             f"same function ({lib_err})")
+    l_ms = device_ms(lib, 20)
+    n, t_out = len(taps), got.shape[1]
+    b_ms, b_by = bound_ms(4 * (p * t + p * t_out + n),
+                          2 * n * p * t_out * (0.5 if mode == "up2"
+                                               else 1.0))
+    row = dict(label=label, mode=mode, shape=[p, t], taps=n,
+               max_abs_err=err, kernel_ms=k_ms, call_ms=c_ms,
+               plain_ms=p_ms, library_ms=l_ms,
+               library_max_abs_err=lib_err, bound_ms=b_ms,
+               bound_by=b_by, plan=_fir_plan_row(plan))
+    emit("banded_fir", **row)
+    return row
+
+
 def phase_fir(rng) -> dict:
     """banded_fir against banded_fir_plain in all three modes; kernel and
     library call timed as device time of back-to-back calls (device_ms),
@@ -231,44 +282,8 @@ def phase_fir(rng) -> dict:
                                device=DEV)
         x = (flat[1:] if label.startswith("ragged") else flat[:-1]).view(p, t)
         for mode in modes:
-            plan = filters.fir_plan(len(taps), mode, t, p,
-                                    x.data_ptr() % 16 == 0)
-            got = filters.banded_fir(x, taps, mode)
-            ref = filters.banded_fir_plain(x, taps, mode)
-            torch.cuda.synchronize()
-            if got.shape != ref.shape:
-                raise AssertionError(f"banded_fir {mode} shape {got.shape} "
-                                     f"!= {ref.shape}")
-            err = (got - ref).abs().max().item()
-            if not err < FIR_TOL:
-                raise AssertionError(f"banded_fir {mode} {label}: max abs "
-                                     f"error {err} >= {FIR_TOL}")
-            worst = max(worst, err)
-
-            def run():
-                return filters.banded_fir(x, taps, mode)
-            k_ms, c_ms = device_ms(run, 20), call_ms(run, 20)
-            p_ms = call_ms(lambda: filters.banded_fir_plain(x, taps, mode),
-                           10)
-            lib = _library_fir(x, taps, mode)
-            lib_out = lib()[:, 0, :got.shape[1]]
-            lib_err = (lib_out - ref[:, :lib_out.shape[1]]
-                       ).abs().max().item()
-            if not lib_err < FIR_TOL \
-                    or lib_out.shape[1] < got.shape[1] - 1:
-                raise AssertionError(f"library FIR {mode} {label}: not the "
-                                     f"same function ({lib_err})")
-            l_ms = device_ms(lib, 20)
-            n, t_out = len(taps), got.shape[1]
-            b_ms, b_by = bound_ms(4 * (p * t + p * t_out + n),
-                                  2 * n * p * t_out * (0.5 if mode == "up2"
-                                                       else 1.0))
-            row = dict(label=label, mode=mode, shape=list(shape), taps=n,
-                       max_abs_err=err, kernel_ms=k_ms, call_ms=c_ms,
-                       plain_ms=p_ms, library_ms=l_ms,
-                       library_max_abs_err=lib_err, bound_ms=b_ms,
-                       bound_by=b_by, plan=_fir_plan_row(plan))
-            emit("banded_fir", **row)
+            row = _fir_row(x, taps, mode, label)
+            worst = max(worst, row["max_abs_err"])
             if label.startswith("RX") and mode == "same":
                 main = row
     main["max_abs_err"] = worst
@@ -1043,15 +1058,23 @@ def phase_waveform_ul_uci() -> dict:
 
 
 class _OpCount(TorchDispatchMode):
-    """Counts the ATen operations run under it."""
+    """Counts the ATen operations run under it (n) and those of them that
+    write a CUDA tensor from a host tensor of one or more dimensions
+    (h2d: copies and indexed writes of host-built values)."""
 
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.h2d = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.n += 1
-        return func(*args, **(kwargs or {}))
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, torch.Tensor) and out.is_cuda and any(
+                isinstance(a, torch.Tensor) and a.device.type == "cpu"
+                and a.dim() > 0 for a in args):
+            self.h2d += 1
+        return out
 
 
 def _kernels_per_call(fn):
@@ -1570,6 +1593,185 @@ def phase_csirs_report() -> None:
     emit("csirs_report", **{k: card[k] for k in keys},
          wideband_se=card["wideband_SE"], cpu_wideband_se=cpu["wideband_SE"],
          ms=ms)
+
+
+# ---------------------------------------------------------------------------
+# UL control and PRACH: PUCCH formats 0-4 and SRS beside a PUSCH through the
+# composed gen_ul_waveform (fir_up2_fused), the PRACH waveform (three
+# banded_fir up2 stages with the 56-tap halfband) and the CSI-RS report
+# example. Host-built channel values around the two kernels.
+# ---------------------------------------------------------------------------
+
+ULC_KW = dict(bw=100, n_slots=20, samplerate_in_mhz=245.76)
+
+
+def _ulc_run(device, seed=7, prof=None):
+    """ul_multichannel_config at full width (scs 30 / BW 100, 273 PRBs,
+    TDD, 3840 MHz, 4 antennas, 20 slots at 245.76 Msps) through
+    gen_ul_channel_list and gen_ul_waveform on device -> (fd, td, ul)."""
+    kw = tm_script.ul_multichannel_config(**ULC_KW)
+    wf, carrier = kw.pop("waveform_config"), kw.pop("carrier_config")
+    lists = ul_wf.gen_ul_channel_list(wf, carrier, **kw, seed=seed,
+                                      device=device)
+    return ul_wf.gen_ul_waveform(wf, carrier, *lists, prof=prof)
+
+
+def phase_ul_control_245() -> dict:
+    """A PUSCH, PUCCH formats 0-4 and a 4-port SRS at full width (_ulc_run):
+    exactly one fir_up2_fused launch (8x1228800, 287 + 55 taps) and none
+    of any other kernel; ul within 1.2e-4 of fir_up2_fused_plain on the
+    returned td; the median warm wall ms of three more runs and
+    Msamples/s; the slot_grids / low_phy / channel_filter split of one
+    more (SyncStageTimer); ATen operations and host-to-device writes per
+    slot of another; the kernel at this shape against its plain version
+    (kernel, plain, bound ms); fd equal to, and ul within 1.2e-4 of, the
+    CPU's run on the same lists. Returns the launches."""
+    kernels.reset_launches()
+    fd, td, ul = _ulc_run(DEV)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["fir_up2_fused"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"ul_control_245 launches {launches}")
+    fir, hb = filters.fir_coeff(30, 100), filters.halfband_coeff()
+    planes = torch.cat([td.real, td.imag]).contiguous()
+    ref = filters.fir_up2_fused_plain(planes, fir, hb)
+    err = _check("ul_control_245", "PUSCH+PUCCH F0-F4+SRS", ul,
+                 torch.complex(ref[:4], ref[4:]))
+    runs_ms = _warm_ms(lambda: _ulc_run(DEV))
+    warm_ms = float(np.median(runs_ms))
+    timer = SyncStageTimer()
+    _ulc_run(DEV, prof=timer)
+    with _OpCount() as ops:
+        _ulc_run(DEV)
+        torch.cuda.synchronize()
+    n_slots, (p, t) = ULC_KW["n_slots"], planes.shape
+    kern = _run_case(("fir_up2_fused", "UL control, BW 100, 4 ant, 20 slots",
+                      functools.partial(filters.fir_up2_fused_planes, planes,
+                                        fir, hb),
+                      functools.partial(filters.fir_up2_fused_plain, planes,
+                                        fir, hb),
+                      4 * (3 * p * t + len(fir) + len(hb)),
+                      _fused_ops(len(fir), len(hb), p, t),
+                      dict(shape=[p, t], taps=len(fir))))
+    fd_c, _, ul_c = _ulc_run("cpu")
+    fd_err = (fd.cpu() - fd_c).abs().max().item()
+    ul_err = (ul.cpu() - ul_c).abs().max().item()
+    if not fd_err <= 1e-5 or not ul_err < FIR_TOL \
+            or not (fd_c != 0).any():
+        raise AssertionError(f"ul_control_245 card against CPU: fd {fd_err}"
+                             f", ul {ul_err}")
+    SUMMARY["ul_control_245_warm_ms"] = warm_ms
+    emit("ul_control_245", n_slots=n_slots, nant=fd.shape[0],
+         fd_shape=list(fd.shape), td_shape=list(td.shape),
+         ul_shape=list(ul.shape), launches=launches, max_abs_err=err,
+         warm_ms=warm_ms, warm_runs_ms=runs_ms,
+         msamples_per_s=ul.shape[1] / warm_ms / 1e3,
+         stage_s=dict(timer.seconds), aten_ops_per_slot=ops.n / n_slots,
+         h2d_writes_per_slot=ops.h2d / n_slots,
+         fir_up2_fused=dict(kernel_ms=kern["kernel_ms"],
+                            plain_ms=kern["plain_ms"],
+                            bound_ms=kern["bound_ms"],
+                            max_abs_err=kern["max_abs_err"]),
+         fd_max_abs_err_vs_cpu=fd_err, ul_max_abs_err_vs_cpu=ul_err)
+    return launches
+
+
+# (label, duplex, prach_ConfigurationIndex, msg1_SubcarrierSpacing,
+# PRACH_subframe): long format 0 (LRA 839) and short format A1 (LRA 139)
+PRACH_CASES = [("format 0", "FDD", 16, 15, 1), ("format A1", "TDD", 77, 30, 9)]
+
+
+def _prach_args(duplex, index, msg1, sub):
+    base = get_default_config("prach")
+    carrier = merged(get_default_config("ul_carrier"),
+                     dict(BW=100, duplex_type=duplex))
+    wf = merged(get_default_config("ul_waveform"),
+                dict(numofslots=20, samplerate_in_mhz=245.76))
+    cfg = merged(base["config"], dict(prach_ConfigurationIndex=index,
+                                      msg1_SubcarrierSpacing=msg1))
+    par = merged(base["parameters"], dict(PRACH_subframe=sub))
+    return wf, carrier, cfg, par
+
+
+def phase_prach_245() -> dict:
+    """gen_prach_waveform at 245.76 Msps on the UL carrier (scs 30 / BW
+    100, 20 slots: 4 SFNs) for a long and a short preamble, each active:
+    exactly three banded_fir up2 launches (56 taps; 8x307200 ->
+    8x614400 -> 8x1228800 -> 8x2457600) and nothing else; td within
+    1.2e-4 of banded_fir_plain three times over the same SFN planes; the
+    median warm ms of three more runs; each stage against its plain
+    version and cuDNN conv_transpose1d (kernel, plain, bound, library
+    ms); td within 1.2e-4 of the CPU's run and the preamble data equal.
+    Returns the launches, summed over the two."""
+    total = {}
+    taps = prach.prach_halfband()
+    for label, *case in PRACH_CASES:
+        args = _prach_args(*case)
+        ch = prach.Prach(*args[1:])
+        if not all(ch.is_active(sfn) for sfn in range(4)):
+            raise AssertionError(f"prach {label}: not active in every SFN")
+        kernels.reset_launches()
+        td, data = prach.gen_prach_waveform(*args, device=DEV)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches["banded_fir"] != 3 or sum(launches.values()) != 3:
+            raise AssertionError(f"prach {label} launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        wavs = torch.as_tensor(np.stack([ch.process(sfn)[0]
+                                         for sfn in range(4)]), device=DEV)
+        x = torch.cat([wavs.real, wavs.imag]).contiguous()
+        stages = []
+        for k in range(3):
+            stages.append(_fir_row(x, taps, "up2",
+                                   f"PRACH {label} stage {k + 1}"))
+            x = filters.banded_fir_plain(x, taps, "up2")
+        err = _check("prach_245", label, td,
+                     torch.complex(x[:4], x[4:]).reshape(1, -1))
+        runs_ms = _warm_ms(lambda: prach.gen_prach_waveform(*args,
+                                                            device=DEV))
+        td_c, data_c = prach.gen_prach_waveform(*args, device="cpu")
+        cpu_err = (td.cpu() - td_c).abs().max().item()
+        if not cpu_err < FIR_TOL or not torch.equal(data.cpu(), data_c) \
+                or data_c.shape[0] != 4:
+            raise AssertionError(f"prach {label} card against CPU: "
+                                 f"{cpu_err}")
+        emit("prach_245", label=label, fmt=ch.fmt, lra=ch.info["LRA"],
+             td_shape=list(td.shape), data_shape=list(data.shape),
+             launches=launches, max_abs_err=err,
+             warm_ms=float(np.median(runs_ms)), warm_runs_ms=runs_ms,
+             stages=[{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")} for r in stages],
+             max_abs_err_vs_cpu=cpu_err)
+    return total
+
+
+def phase_csirs_report_example() -> dict:
+    """sim/nr_csirs_report_example.py at its constants (row 3, 2 ports,
+    TDL-A 2x4, 0 / 10 / 20 dB x 2 tests, 2 slots of BW 40 at 245.76 Msps)
+    through its main on the card, then on the CPU with the same seed:
+    wall s of each, and RI, PMI, CQI and subband CQI equal. Returns the
+    card run's launches."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, dev in (("card", str(DEV)), ("cpu", "cpu")):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rows = csirs_ex.main(["--device", dev, "--seed", "3",
+                                  "--out-dir", f"{tmp}/{key}"])
+            torch.cuda.synchronize()
+            runs[key] = dict(rows=rows, launches=dict(kernels.LAUNCHES),
+                             wall_s=time.perf_counter() - t0)
+    keys = ("snr_db", "test", "slot", "RI", "PMI", "CQI", "subband_CQI")
+    card, cpu = ([{k: r[k] for k in keys} for r in runs[d]["rows"]]
+                 for d in ("card", "cpu"))
+    if card != cpu or len(card) != 6:
+        raise AssertionError(f"csirs report example card {card} != CPU {cpu}")
+    emit("csirs_report_example", reports=card,
+         launches=runs["card"]["launches"], wall_s=runs["card"]["wall_s"],
+         cpu_wall_s=runs["cpu"]["wall_s"])
+    return runs["card"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2159,6 +2361,11 @@ def main() -> None:
                        dl_multichannel_245=phase_dl_multichannel_245())
     phase_ssb_waveform_gen()
     phase_csirs_report()
+    # UL control and PRACH: per phase, the launches of each kernel in its
+    # run
+    ulc_launches = dict(ul_control_245=phase_ul_control_245(),
+                        prach_245=phase_prach_245(),
+                        csirs_report_example=phase_csirs_report_example())
     # receiver breadth: per phase, the launches of each kernel in its run
     rx_launches = dict(rx_per_slot=phase_rx_per_slot(),
                        rx_per_slot_full_width=phase_rx_per_slot_full_width(),
@@ -2182,9 +2389,10 @@ def main() -> None:
     # in their gen_dl_waveform calls (summed: 2 Dm waveforms, 3 carriers
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
-    # decoder bench through ldpc_decode; ul_launches, dl_launches and
-    # rx_launches: the uplink phases, the multi-channel DL phases and the
-    # receiver-breadth phases that launched the kernel, with their counts
+    # decoder bench through ldpc_decode; ul_launches, dl_launches,
+    # rx_launches and ulc_launches: the uplink phases, the multi-channel DL
+    # phases, the receiver-breadth phases and the UL-control / PRACH phases
+    # that launched the kernel, with their counts
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
@@ -2216,7 +2424,10 @@ def main() -> None:
                                        if n.get(name, 0) > 0},
                           rx_launches={ph: n[name] for ph, n in
                                        rx_launches.items()
-                                       if n.get(name, 0) > 0}))
+                                       if n.get(name, 0) > 0},
+                          ulc_launches={ph: n[name] for ph, n in
+                                        ulc_launches.items()
+                                        if n.get(name, 0) > 0}))
     emit("summary", **SUMMARY)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

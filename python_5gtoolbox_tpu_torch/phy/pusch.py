@@ -34,6 +34,7 @@ from python_5gtoolbox_tpu_torch.ops.modulation import (QM_NAME, modulate,
 from python_5gtoolbox_tpu_torch.ops.prbs import gen_prbs_np
 from python_5gtoolbox_tpu_torch.phy import tbsize as tbs_mod
 from python_5gtoolbox_tpu_torch.ops.ldpc.segment import sch_plan
+from python_5gtoolbox_tpu_torch.phy.grid import write_res
 from python_5gtoolbox_tpu_torch.phy.pdsch import (SlotBatchTx, dlsch_encode,
                                                   get_dmrs_symlist)
 from python_5gtoolbox_tpu_torch.phy.pusch_uci import (
@@ -194,13 +195,15 @@ class NrPUSCH(SlotBatchTx):
             n_layers, cfg["nTransPrecode"],
             cfg["ResAlloType1"]["RBSize"] * 12)
 
-    def process(self, fd_slot: torch.Tensor, usage: torch.Tensor,
+    def process(self, fd_slot: torch.Tensor, usage: np.ndarray,
                 slot: int, trblk=None):
-        """One slot into a shared grid: fd_slot (ant, 14*n_sc) complex64
-        and usage (ant, 14*n_sc) int8, tensors on self.device, written in
-        place and returned. Gated slots are left as they are. rv cycling
-        and block draws follow tx_grid_batch; trblk (TBSize,) replaces
-        the slot's block."""
+        """One slot into a shared grid, the reference's protocol: fd_slot
+        (ant, 14*n_sc) complex64 on self.device, usage the host (ant,
+        14*n_sc) int8 RE-usage map (as Pdsch.process). Both are written
+        in place and returned; gated slots are left as they are. rv
+        cycling and block draws follow tx_grid_batch; trblk (TBSize,)
+        replaces the slot's block. The DMRS and the data symbols go in
+        with one indexed write each, at REs read from the host map."""
         cfg = self.cfg
         if not self.is_active_slot(slot):
             return fd_slot, usage
@@ -274,8 +277,9 @@ class NrPUSCH(SlotBatchTx):
                                  self.rate1024, g_total)
 
     def _dmrs_process(self, fd_slot, usage, slot):
-        """Write the precoded DMRS of one slot and mark its REs (and, with
-        2 CDM groups without data, the other comb) in usage."""
+        """Write the precoded DMRS of one slot (one indexed write) and
+        mark its REs (and, with 2 CDM groups without data, the other
+        comb) in the host usage map."""
         cfg, dmrs = self.cfg, self.cfg["DMRS"]
         assert dmrs["DMRSConfigType"] == 1 and dmrs["NrOfDMRSSymbols"] == 1
         assert dmrs["PUSCHMappintType"] == "A"
@@ -285,8 +289,8 @@ class NrPUSCH(SlotBatchTx):
         n_sc = 12 * self.prb_size
         ncdm = dmrs["NumCDMGroupsWithoutData"]
         symlist = self._dmrs_symlist()
-        vals = torch.as_tensor(self._dmrs_values(slot), device=self.device)
-        for k, sym in enumerate(symlist):
+        vals = self._dmrs_values(slot)                # (nd, ant, rb12)
+        for sym in symlist:
             base = sym * n_sc + rb_start * 12
             for m in range(cfg["num_of_layers"]):
                 delta = ((cfg["PortIndexList"][m] - 1000) // 2) % 2
@@ -295,19 +299,25 @@ class NrPUSCH(SlotBatchTx):
                 if ncdm == 2:
                     usage[m:, base + 1 - delta: base + rb12: 2] = \
                         RE_USAGE["PUSCH-DMRS-RSV"]
-            fd_slot[:, base: base + rb12] = vals[k]
+        res = (np.asarray(symlist)[:, None] * n_sc + rb_start * 12
+               + np.arange(rb12)).reshape(-1)
+        # every antenna of the grid, a 1-port precoder's row broadcast
+        # (the JAX package's slice write)
+        write_res(fd_slot, np.arange(fd_slot.shape[0])[:, None],
+                  res[None, :],
+                  vals.transpose(1, 0, 2).reshape(vals.shape[1], -1))
         return fd_slot, usage, symlist
 
-    def _alloc_columns(self) -> torch.Tensor:
+    def _alloc_columns(self) -> np.ndarray:
         """Flat indices of the allocation's REs, symbol by symbol."""
         cfg = self.cfg
         n_sc = 12 * self.prb_size
         rb_start = cfg["ResAlloType1"]["RBStart"]
         rb12 = cfg["ResAlloType1"]["RBSize"] * 12
-        syms = torch.arange(cfg["StartSymbolIndex"], cfg["StartSymbolIndex"]
-                            + cfg["NrOfSymbols"], device=self.device)
+        syms = np.arange(cfg["StartSymbolIndex"], cfg["StartSymbolIndex"]
+                         + cfg["NrOfSymbols"])
         return (syms[:, None] * n_sc + rb_start * 12
-                + torch.arange(rb12, device=self.device)).reshape(-1)
+                + np.arange(rb12)).reshape(-1)
 
     def _data_mapping_prepare(self, usage):
         """Mark the allocation's empty REs as PUSCH data -> (usage, the
@@ -322,10 +332,11 @@ class NrPUSCH(SlotBatchTx):
     def _data_mapping_commit(self, precoded, fd_slot, usage):
         """Write the data symbols in mapping order (symbol by symbol,
         subcarriers ascending) where the first antenna's usage is PUSCH
-        data."""
+        data, in one indexed write."""
         cols = self._alloc_columns()
         cols = cols[usage[0, cols] == RE_USAGE["PUSCH-DATA"]]
-        fd_slot[:, cols] = precoded[:, : cols.numel()]
+        fd_slot[:, torch.as_tensor(cols, device=fd_slot.device)] = \
+            precoded[:, : cols.size]
         return fd_slot
 
 

@@ -10,7 +10,9 @@ prints its line per TM. The default out-dir is out/torch, beside the JAX
 script's out/, whose files it would otherwise overwrite.
 
 dl_multichannel_config gives a waveform with all four DL channels at
-once (SSB, CSI-RS, PDCCH, PDSCH), used to check the composed path.
+once (SSB, CSI-RS, PDCCH, PDSCH), ul_multichannel_config one with a
+PUSCH, PUCCH formats 0-4 and a 4-port SRS; both are used to check the
+composed paths.
 
     python -m python_5gtoolbox_tpu_torch.sim.gen_nr_testmodel
         [--device cpu] [--seed 0] [--out-dir out/torch]
@@ -23,8 +25,10 @@ import pathlib
 import numpy as np
 
 from python_5gtoolbox_tpu_torch import resolve_device
+from python_5gtoolbox_tpu_torch.phy.srs import srs_bw_config
 from python_5gtoolbox_tpu_torch.phy.testmodel import gen_nr_tm_cfg
 from python_5gtoolbox_tpu_torch.utils.config import get_default_config, merged
+from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
 from python_5gtoolbox_tpu_torch.waveform.dl import (gen_dl_channel_list,
                                                     gen_dl_waveform)
 
@@ -86,6 +90,43 @@ def dl_multichannel_config(n_slots: int = 20,
                 search_space_list=[get_default_config("search_space")],
                 coreset_config_list=[coreset], csirs_config_list=[csirs],
                 pdsch_config_list=[pdsch])
+
+
+def ul_multichannel_config(bw: int = 100, n_slots: int = 20,
+                           samplerate_in_mhz: float = 245.76) -> dict:
+    """Keyword arguments of gen_ul_channel_list for a waveform with a
+    PUSCH, one PUCCH of each format 0-4 and a 4-port SRS together: scs 30
+    / BW bw, TDD, 3840 MHz, 4 antennas. The PUSCH (1 port, 1
+    layer, 256QAM table MCS 20, random blocks) fills every slot's
+    symbols 0-11 on all PRBs but the top 10; each PUCCH hops between two
+    of those 10 PRBs in even slots (format 0: symbols 12-13, 1: 10-13,
+    2: 12-13, 3 and 4: 9-13); the SRS (comb 2, cSRS the widest the
+    carrier holds: 104 PRBs at BW 40, 272 at BW 100) takes symbols 12-13
+    of odd slots, after the PUSCH."""
+    carrier = merged(get_default_config("ul_carrier"),
+                     dict(BW=bw, num_of_ant=4, Nr=4))
+    prb = carrier_prb_size(carrier["scs"], bw)
+    waveform = merged(get_default_config("ul_waveform"),
+                      dict(numofslots=n_slots,
+                           samplerate_in_mhz=samplerate_in_mhz))
+    pusch_cfg = merged(get_default_config("pusch"), dict(
+        nNrOfAntennaPorts=1, nPMI=0, StartSymbolIndex=0, NrOfSymbols=12,
+        ResAlloType1=dict(RBStart=0, RBSize=prb - 10)))
+    every_even = dict(Periodicity_in_slot=2, slotoffset=0)
+    pucch = [merged(get_default_config(f"pucch_format{fmt}"),
+                    dict(every_even, startingPRB=prb - 10 + 2 * fmt,
+                         secondHopPRB=prb - 9 + 2 * fmt))
+             for fmt in range(5)]
+    table = [srs_bw_config(c)[1] for c in range(64)]
+    c_srs = max(range(64), key=lambda c: (table[c] <= prb, table[c], -c))
+    srs = merged(get_default_config("srs"), dict(
+        nrofSRSPorts=4, KTC=2, cSRS=c_srs, startPosition=1, nrofSymbols=2,
+        SRSPeriodicity=2, SRSOffset=1))
+    return dict(waveform_config=waveform, carrier_config=carrier,
+                pusch_config_list=[pusch_cfg],
+                srs_config_list=[srs],
+                **{f"pucch_format{fmt}_config_list": [pucch[fmt]]
+                   for fmt in range(5)})
 
 
 def main(argv=None) -> list[pathlib.Path]:

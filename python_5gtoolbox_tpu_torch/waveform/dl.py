@@ -44,7 +44,7 @@ from python_5gtoolbox_tpu_torch.utils import numerology as num
 def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
                     nrSSB_list=(), nrPdsch_list=(), nrCSIRS_list=(),
                     nrPDCCH_list=(), Dm: np.ndarray | None = None,
-                    trblks=None, prof=None):
+                    trblks=None, prof=None, device=None):
     """-> (fd_waveform, td_waveform, dl_waveform, td_sample_rate_hz), all
     tensors on the channels' device.
 
@@ -54,8 +54,9 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     antenna roll is folded into the grid and td is not produced, as on the
     JAX device path; the composed branch returns td. trblks (Sa, TBSize)
     is handed to Pdsch.tx_grid_batch (single-PDSCH branch only). The
-    composed branch works on the first PDSCH's or SSB's device (cuda when
-    there is neither). prof: optional stage timer (an object whose
+    composed branch works on the first PDSCH's or SSB's device; device
+    (None -> cuda) is where it works when there is neither (CSI-RS and
+    PDCCH carry no device). prof: optional stage timer (an object whose
     stage(name) is a context manager) charged with the composed branch's
     slot_grids (every channel's process), low_phy (OFDM and slot phase)
     and channel_filter stages.
@@ -93,7 +94,7 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
             raise ValueError("trblks= needs a single batch-capable PDSCH "
                              "and no other channel")
         device = next((ch.device for ch in (*nrPdsch_list, *nrSSB_list)),
-                      None)
+                      device)
         with stage("slot_grids"):
             fd = _per_slot_grids(waveform_config, nant, 12 * prb, spf,
                                  nrSSB_list, nrPdsch_list, nrCSIRS_list,

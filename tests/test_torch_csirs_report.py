@@ -1,7 +1,10 @@
 """PyTorch port, the CSI report (RI / PMI / CQI): the codebooks, the
 channel estimate (within 1e-5) and the reports (RI, PMI and CQI equal)
 against the JAX package on the cases of tests/test_csirs_report.py, the
-received grids built by that module from the same seeds.
+received grids built by that module from the same seeds; and
+sim/nr_csirs_report_example.py at one SNR point and one test, its
+received grids reported by the JAX package's NrCSIRSReport (equal RI,
+PMI, CQI) without compiling the JAX TDL and filter chain.
 """
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from python_5gtoolbox_tpu.phy import csirs_report as jrep
 
 from python_5gtoolbox_tpu_torch.phy import csirs as tcsirs
 from python_5gtoolbox_tpu_torch.phy import csirs_report as trep
+from python_5gtoolbox_tpu_torch.sim import nr_csirs_report_example as ex
 
 CASES = [(2, 3, "000001"), (4, 4, "001"), (4, 5, "000010")]
 
@@ -127,3 +131,25 @@ def test_subband_size_validation():
     rcfg["SubbandSize "] = 32  # invalid for 106 PRB (allows 8/16)
     with pytest.raises(AssertionError, match="SubbandSize"):
         trep.NrCSIRSReport(carrier, csirs, rcfg, n_rx=2, device="cpu")
+
+
+def test_report_example_matches_jax_report(tmp_path):
+    """The example at the JAX script's constants, cut to the 0 dB point
+    and one test (on the CPU), through main: one report per CSI-RS slot
+    of the 2 (slot 0), written to the out dir; the JAX report on the same
+    received grid gives the same RI, PMI (below full rank, see above),
+    CQI and subband CQI."""
+    config = dict(ex.example_config(), snr_db_list=[0.0], total_tests=1)
+    rows = ex.main(["--device", "cpu", "--seed", "0", "--out-dir",
+                    str(tmp_path)], config=config)
+    assert [(r["snr_db"], r["test"], r["slot"]) for r in rows] == \
+        [(0.0, 0, 0)]
+    assert (tmp_path / config["filename"]).exists()
+    want = jrep.NrCSIRSReport(config["carrier"], config["csirs"],
+                              config["report"], n_rx=config["n_rx"]).report(
+        rows[0]["rx_slot"].numpy(), 0, 0)
+    got = rows[0]
+    keys = ("RI", "CQI", "subband_CQI") + (
+        ("PMI",) if want["RI"] < config["csirs"]["nrofPorts"] else ())
+    for key in keys:
+        assert got[key] == want.get(key), key

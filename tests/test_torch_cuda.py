@@ -19,6 +19,7 @@ import torch
 
 from python_5gtoolbox_tpu_torch import kernels
 from python_5gtoolbox_tpu_torch.ops import filters, ofdm
+from python_5gtoolbox_tpu_torch.phy.prach import prach_halfband
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode
 
@@ -61,12 +62,16 @@ def _max_err(got, ref):
     return (got - ref).abs().max().item()
 
 
-FIR_TAP_COUNTS = sorted(set(filters._FIR_NUMTAPS.values()) | {55})
+# 56: the PRACH chain's halfband (phy/prach.py:prach_halfband), the one
+# even tap count
+FIR_TAP_COUNTS = sorted(set(filters._FIR_NUMTAPS.values()) | {55, 56})
 
 
 def _fir_taps(n):
     if n == 55:
         return filters.halfband_coeff()
+    if n == 56:
+        return prach_halfband()
     scs, bw = next(k for k, v in filters._FIR_NUMTAPS.items() if v == n)
     return filters.fir_coeff(scs, bw)
 
@@ -931,3 +936,95 @@ def test_ml_irc_whitening_in_eigh_batches_on_card(cuda_device):
                                      device="cpu")
     assert torch.equal(card[2].cpu(), host[2])
     assert (card[3].cpu() - host[3]).abs().max() <= 1e-3 * host[3].abs().max()
+
+
+# --- UL control and PRACH ---------------------------------------------------
+
+def test_ul_control_waveform_on_card_matches_cpu(cuda_device):
+    """PUSCH + PUCCH formats 0-4 + a 4-port SRS (ul_multichannel_config,
+    scs 30 / BW 40, 4 antennas, 4 slots at 245.76 Msps): one
+    fir_up2_fused and one banded_fir up2, fd equal to the CPU's, dl
+    within 1.2e-4 of the CPU's (the plain chain); the list without the
+    PUSCH too."""
+    from python_5gtoolbox_tpu_torch.sim.gen_nr_testmodel import \
+        ul_multichannel_config
+    from python_5gtoolbox_tpu_torch.waveform import ul as ul_wf
+    for with_pusch in (True, False):
+        kw = ul_multichannel_config(bw=40, n_slots=4)
+        if not with_pusch:
+            kw["pusch_config_list"] = []
+        wf, carrier = kw.pop("waveform_config"), kw.pop("carrier_config")
+        outs = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            kernels.reset_launches()
+            lists = ul_wf.gen_ul_channel_list(wf, carrier, **kw, seed=2,
+                                              device=dev)
+            outs[dev.type] = ul_wf.gen_ul_waveform(wf, carrier, *lists)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["fir_up2_fused"] == 1
+                assert kernels.LAUNCHES["banded_fir"] == 1
+                assert sum(kernels.LAUNCHES.values()) == 2
+        (fd, td, ul), (fd_c, td_c, ul_c) = outs["cuda"], outs["cpu"]
+        assert ul.shape == (4, 4 * td.shape[1])
+        assert (fd.cpu() - fd_c).abs().max() <= 1e-5
+        assert (ul.cpu() - ul_c).abs().max() < 1.2e-4
+        assert fd_c.abs().max() > 0
+
+
+@pytest.mark.parametrize("shape", [(8, 307200), (8, 614400), (4, 3001)])
+def test_prach_halfband_kernel_matches_plain(cuda_device, shape):
+    """banded_fir up2 with the PRACH chain's 56-tap halfband (the one even
+    tap count) at the PRACH stage shapes and a ragged row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    before = kernels.LAUNCHES["banded_fir"]
+    got = filters.banded_fir(x, prach_halfband(), "up2")
+    ref = filters.banded_fir_plain(x, prach_halfband(), "up2")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_fir"] == before + 1
+    assert _max_err(got, ref) < 1.2e-4
+
+
+@pytest.mark.parametrize("index,duplex,msg1,sub", [(16, "FDD", 15, 1),
+                                                   (77, "TDD", 30, 9)])
+def test_prach_waveform_on_card_matches_cpu(cuda_device, index, duplex,
+                                            msg1, sub):
+    """gen_prach_waveform at 245.76 Msps (4 SFNs for 20 slots at scs 30):
+    three banded_fir up2 launches, td within 1.2e-4 of the CPU's, the
+    preamble data equal."""
+    from python_5gtoolbox_tpu_torch.phy import prach
+    from python_5gtoolbox_tpu_torch.utils.config import (get_default_config,
+                                                         merged)
+    base = get_default_config("prach")
+    carrier = merged(get_default_config("ul_carrier"),
+                     dict(BW=100, duplex_type=duplex))
+    wf = merged(get_default_config("ul_waveform"),
+                dict(samplerate_in_mhz=245.76))
+    cfg = merged(base["config"], dict(prach_ConfigurationIndex=index,
+                                      msg1_SubcarrierSpacing=msg1))
+    par = merged(base["parameters"], dict(PRACH_subframe=sub))
+    kernels.reset_launches()
+    td, data = prach.gen_prach_waveform(wf, carrier, cfg, par,
+                                        device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_fir"] == 3
+    assert sum(kernels.LAUNCHES.values()) == 3
+    td_c, data_c = prach.gen_prach_waveform(wf, carrier, cfg, par,
+                                            device="cpu")
+    assert td.shape == td_c.shape == (1, 4 * 2457600)
+    assert data_c.shape[0] > 0 and torch.equal(data.cpu(), data_c)
+    assert (td.cpu() - td_c).abs().max() < 1.2e-4
+
+
+def test_csirs_report_example_on_card_matches_cpu(cuda_device, tmp_path):
+    """sim/nr_csirs_report_example.py at one SNR point and one test: the
+    same RI, PMI and CQI on the card and on the CPU for the same seed."""
+    from python_5gtoolbox_tpu_torch.sim import nr_csirs_report_example as ex
+    config = dict(ex.example_config(), snr_db_list=[10.0], total_tests=1)
+    rows = {dev: ex.run_csirs_report(config, dev, seed=1)
+            for dev in (cuda_device, "cpu")}
+    card, cpu = rows[cuda_device], rows["cpu"]
+    assert len(card) == len(cpu) == 1
+    for key in ("RI", "PMI", "CQI", "subband_CQI"):
+        assert card[0][key] == cpu[0][key], key

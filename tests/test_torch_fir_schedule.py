@@ -21,14 +21,19 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from python_5gtoolbox_tpu_torch import kernels
 from python_5gtoolbox_tpu_torch.ops import filters, ofdm
+from python_5gtoolbox_tpu_torch.phy.prach import prach_halfband
 
 TOL = 1.2e-4
-TAP_COUNTS = sorted(set(filters._FIR_NUMTAPS.values()) | {55})
+# 56: the PRACH chain's halfband (phy/prach.py:prach_halfband), the one
+# even tap count
+TAP_COUNTS = sorted(set(filters._FIR_NUMTAPS.values()) | {55, 56})
 
 
 def _taps(n: int) -> np.ndarray:
     if n == 55:
         return filters.halfband_coeff()
+    if n == 56:
+        return prach_halfband()
     scs, bw = next(k for k, v in filters._FIR_NUMTAPS.items() if v == n)
     return filters.fir_coeff(scs, bw)
 

@@ -62,10 +62,21 @@ DATA_FILES = ["configs/default_dl_carrier_config.json",
               "configs/default_pusch_config.json",
               "configs/default_ul_carrier_config.json",
               "configs/default_ul_waveform_config.json",
+              "configs/default_pucch_format0_config.json",
+              "configs/default_pucch_format1_config.json",
+              "configs/default_pucch_format2_config.json",
+              "configs/default_pucch_format3_config.json",
+              "configs/default_pucch_format4_config.json",
+              "configs/default_srs_config.json",
+              "configs/default_prach_config.json",
               "data/ldpc_basegraphs.npz",
               "data/lowpapr_phi.npz",
               "data/polar_reliability.npz",
-              "data/tdl_profiles.npz"]
+              "data/tdl_profiles.npz",
+              "data/srs_bw_config.npz",
+              "data/prach_config_fr1_fdd.json",
+              "data/prach_config_fr1_tdd.json",
+              "data/prach_root_sequences.npz"]
 
 
 @pytest.mark.parametrize("rel", DATA_FILES)
@@ -76,7 +87,10 @@ def test_data_file_copies_are_identical(rel):
 @pytest.mark.parametrize("name", ["dl_carrier", "pdsch", "channel_model",
                                   "ul_carrier", "pusch", "ul_waveform",
                                   "ssb", "coreset", "search_space", "pdcch",
-                                  "csirs", "csirs_report", "dl_waveform"])
+                                  "csirs", "csirs_report", "dl_waveform",
+                                  "pucch_format0", "pucch_format1",
+                                  "pucch_format2", "pucch_format3",
+                                  "pucch_format4", "srs", "prach"])
 def test_default_configs(name):
     assert tconfig.get_default_config(name) == \
         jconfig.get_default_config(name)
@@ -237,7 +251,9 @@ def test_port_sources_import_no_jax():
                 "sim/examples.py", "sim/nr_pdsch_throughput_example.py",
                 "sim/nr_pdsch_ber_example.py",
                 "sim/nr_pusch_throughput_example.py",
-                "sim/nr_pusch_ber_example.py"):
+                "sim/nr_pusch_ber_example.py", "phy/pucch.py",
+                "phy/srs.py", "phy/prach.py", "models/pathloss.py",
+                "sim/nr_csirs_report_example.py"):
         assert PORT / rel in files, rel
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

@@ -15,13 +15,16 @@ import torch
 import jax.numpy as jnp
 
 from tests.golden import get_golden
+from tests.test_pdsch import PDSCH_SLOT_CASES
 
 from python_5gtoolbox_tpu.phy import pdsch as jpdsch
 from python_5gtoolbox_tpu.utils.config import get_default_config, merged
 from python_5gtoolbox_tpu.waveform import dl as jdl
 
 from python_5gtoolbox_tpu_torch.phy import pdsch as tpdsch
+from python_5gtoolbox_tpu_torch.phy import ssb as tssb
 from python_5gtoolbox_tpu_torch.phy import tbsize as T
+from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
 from python_5gtoolbox_tpu_torch.waveform import dl as tdl
 
 
@@ -163,3 +166,28 @@ def test_dl_waveform_matches_jax(with_dm):
     dl_j = np.asarray(dl_j)
     assert dl_t.shape == dl_j.shape
     assert np.abs(dl_t.numpy() - dl_j).max() < 1.2e-4
+
+
+@pytest.mark.parametrize("i", range(len(PDSCH_SLOT_CASES)))
+def test_pdsch_slot_golden(i):
+    """The per-slot NrSSB.process + Pdsch.process against the pdsch_slot2
+    golden (the cases of tests/test_pdsch.py: 1-4 antennas, scs 15 and
+    30, FDD and TDD, BW 20-100, an SSB slot, 1-4 layers): usage equal, fd
+    within that test's 3e-5."""
+    gold = get_golden("pdsch_slot2", _no_golden_gen)
+    ci, with_ssb, nant, slot, scs, bw, duplex = PDSCH_SLOT_CASES[i]
+    prb = carrier_prb_size(scs, bw)
+    cfg = _apply_case(get_default_config("pdsch"), TBS_CASES[ci])
+    cfg["ResAlloType1"]["RBSize"] = min(cfg["ResAlloType1"]["RBSize"], prb)
+    cfg["data_source"] = [1, 0, 0, 1]
+    carrier = merged(get_default_config("dl_carrier"),
+                     dict(num_of_ant=nant, maxMIMO_layers=4, BW=bw,
+                          scs=scs, duplex_type=duplex))
+    fd = torch.zeros((nant, 14 * 12 * prb), dtype=torch.complex64)
+    usage = np.zeros((nant, 14 * 12 * prb), np.int8)
+    if with_ssb:
+        tssb.NrSSB(carrier, get_default_config("ssb"),
+                   device="cpu").process(fd, usage, 0, slot)
+    tpdsch.Pdsch(cfg, carrier, device="cpu").process(fd, usage, slot)
+    np.testing.assert_array_equal(usage, gold[f"usage_{i}"])
+    np.testing.assert_allclose(fd.numpy(), gold[f"fd_{i}"], atol=3e-5)

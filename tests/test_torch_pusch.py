@@ -195,17 +195,12 @@ def test_ul_waveform_matches_jax(nant, return_device):
 
 
 def test_unported_entry_points_raise():
-    """SRS and PUCCH in gen_ul_waveform are not ported; a UCI config is
-    not batch-capable (it takes the per-slot branch, held against the JAX
-    package in tests/test_torch_pusch_uci.py), and trblks= goes with one
-    PUSCH only."""
+    """A UCI config is not batch-capable (it takes the per-slot branch,
+    held against the JAX package in tests/test_torch_pusch_uci.py), and
+    trblks= goes with one PUSCH only. (SRS and PUCCH lists are ported:
+    tests/test_torch_ul_control.py.)"""
     carrier, cfg, wf = _golden_wave_config()
     ch = tpusch.NrPUSCH(carrier, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tul.gen_ul_waveform(wf, carrier, [ch], nrSrs_list=[object()])
-    with pytest.raises(NotImplementedError):
-        tul.gen_ul_waveform(wf, carrier, [ch],
-                            nrPucchFormat1_list=[object()])
     uci = tpusch.NrPUSCH(carrier, dict(cfg, EnableACK=1, NumACKBits=2),
                          device="cpu")
     assert not uci.tx_batch_supported()

@@ -105,7 +105,7 @@ def _ul_case(kind):
 
     def grid():
         fd, _ = ch.process(torch.zeros((nt, n), dtype=torch.complex64),
-                           torch.zeros((nt, n), dtype=torch.int8), 0,
+                           np.zeros((nt, n), np.int8), 0,
                            trblk=blk)
         return fd.numpy()
     return carrier, pusch, _rx(grid, nt, carrier["Nr"]), blk

@@ -1,16 +1,18 @@
 """PyTorch port, configuration validation: the port's NrSSB and NrPUSCH
 refuse every configuration of tests/test_validate.py that the JAX
 package's refuse, with a ValueError matching the same pattern, and take
-the valid defaults; validate_pucch_config on its own holds the PUCCH
-cases (the PUCCH channels are not ported).
+the valid defaults; the port's PUCCH format classes refuse the PUCCH
+cases as the JAX classes do.
 """
 import pytest
 
+from python_5gtoolbox_tpu.phy import pucch as jpucch
 from python_5gtoolbox_tpu.phy import pusch as jpusch
 from python_5gtoolbox_tpu.phy import ssb as jssb
 from python_5gtoolbox_tpu.phy import validate as jval
 from python_5gtoolbox_tpu.utils.config import get_default_config, merged
 
+from python_5gtoolbox_tpu_torch.phy import pucch as tpucch
 from python_5gtoolbox_tpu_torch.phy import pusch as tpusch
 from python_5gtoolbox_tpu_torch.phy import ssb as tssb
 from python_5gtoolbox_tpu_torch.phy import validate as tval
@@ -85,11 +87,16 @@ def test_pusch_valid_and_invalid(case):
     (4, "occ_index", 2, "occ_index"),
 ])
 def test_pucch_invalid(fmt, field, value, pat):
+    """Each PUCCH format class validates first thing, as the JAX class."""
     carrier = _carrier(ul=True)
     cfg = get_default_config(f"pucch_format{fmt}")
-    tval.validate_pucch_config(fmt, carrier, cfg)   # default valid
+    t_cls = getattr(tpucch, f"NrPUCCHFormat{fmt}")
+    t_cls(carrier, cfg, device="cpu")               # default valid
     cfg[field] = value
     if fmt == 2 and field == "NumUCIBits":
         cfg["UCIbits"] = [1] * value
+    _both_refuse(lambda: getattr(jpucch, f"NrPUCCHFormat{fmt}")(carrier,
+                                                                cfg),
+                 lambda: t_cls(carrier, cfg, device="cpu"), pat)
     _both_refuse(lambda: jval.validate_pucch_config(fmt, carrier, cfg),
                  lambda: tval.validate_pucch_config(fmt, carrier, cfg), pat)
