@@ -48,6 +48,12 @@ then drives the port's paths through its entry points:
     (three banded_fir up2 stages with the 56-tap halfband, every SFN in
     one launch), and sim/nr_csirs_report_example.py, each held against
     the plain chain and the CPU;
+  * parallelism on torch.distributed: 2 gloo ranks sharing the card
+    (spawned after the kernels are built) run the time-sharded TX and RX
+    channel filters at full width, tp_ml2 on one bench slot, the
+    pipelined TX waveform, the slot-sharded batched RX and
+    dryrun_multichip(2), each gathered result held against the single
+    rank's path on the card;
   * the LDPC decoder BLER study (scripts/sim_ldpc_decoder.py: Zc 12, BG1,
     400 codewords per SNR point, six decoder settings) and the
     bit-flipping study's decode, and the decoder bench's shape
@@ -116,7 +122,7 @@ from python_5gtoolbox_tpu_torch.rx.channel_estimate import NrChannelEstimation  
 from python_5gtoolbox_tpu_torch.sim import ldpc_decoder as study  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import polar_decoder as pstudy  # noqa: E402
-from python_5gtoolbox_tpu_torch.sim.profile_sweep import SyncStageTimer  # noqa: E402
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tm_script  # noqa: E402
 from python_5gtoolbox_tpu_torch.sim import nr_pdsch_throughput_example as pdsch_ex  # noqa: E402
@@ -141,6 +147,11 @@ SUMMARY: dict = {}             # end-to-end rates, printed again near the end
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps(dict(phase=phase, **kw)), flush=True)
+
+
+def _stage_s(prof: StageProfiler) -> dict:
+    """Seconds per stage (CUDA events, resolved here)."""
+    return {k: s.seconds for k, s in prof.stats.items()}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -962,13 +973,13 @@ def phase_pusch_uci() -> dict:
             return obj, out
 
         for i, snr in enumerate(snrs):                            # warm
-            point(snr, 3 + 7919 * i, SyncStageTimer())
+            point(snr, 3 + 7919 * i, StageProfiler(DEV))
         kernels.reset_launches()
         rows = []
         for i, snr in enumerate(snrs):
-            timer = SyncStageTimer()
+            timer = StageProfiler(DEV)
             _, (ok, _, dec) = point(snr, 3 + 7919 * i, timer)
-            ms = {k: v * 1e3 for k, v in timer.seconds.items()}
+            ms = {k: v * 1e3 for k, v in _stage_s(timer).items()}
             rows.append(dict(snr_db=snr, tb_passed=int(ok.sum()),
                              uci_exact=_uci_exact(dec, pusch, n_slots),
                              tx_ms=ms["tx_waveform"], channel_ms=ms["channel"],
@@ -987,7 +998,7 @@ def phase_pusch_uci() -> dict:
             0, 2, (n_slots, NrPUSCH(carrier, pusch, device=DEV).tbsize),
             dtype=np.int8)
         obj, (ok, tbblk, dec) = point(
-            30.0, 30, SyncStageTimer(),
+            30.0, 30, StageProfiler(DEV),
             state=state_from_numpy(trblks=trblks, device=DEV))
         exact = _uci_exact(dec, pusch, n_slots)
         streams = [k for k, f in _UCI_FIELDS if pusch.get(
@@ -1622,7 +1633,7 @@ def phase_ul_control_245() -> dict:
     of any other kernel; ul within 1.2e-4 of fir_up2_fused_plain on the
     returned td; the median warm wall ms of three more runs and
     Msamples/s; the slot_grids / low_phy / channel_filter split of one
-    more (SyncStageTimer); ATen operations and host-to-device writes per
+    more (StageProfiler: CUDA events); ATen operations and host-to-device writes per
     slot of another; the kernel at this shape against its plain version
     (kernel, plain, bound ms); fd equal to, and ul within 1.2e-4 of, the
     CPU's run on the same lists. Returns the launches."""
@@ -1639,7 +1650,7 @@ def phase_ul_control_245() -> dict:
                  torch.complex(ref[:4], ref[4:]))
     runs_ms = _warm_ms(lambda: _ulc_run(DEV))
     warm_ms = float(np.median(runs_ms))
-    timer = SyncStageTimer()
+    timer = StageProfiler(DEV)
     _ulc_run(DEV, prof=timer)
     with _OpCount() as ops:
         _ulc_run(DEV)
@@ -1666,7 +1677,7 @@ def phase_ul_control_245() -> dict:
          ul_shape=list(ul.shape), launches=launches, max_abs_err=err,
          warm_ms=warm_ms, warm_runs_ms=runs_ms,
          msamples_per_s=ul.shape[1] / warm_ms / 1e3,
-         stage_s=dict(timer.seconds), aten_ops_per_slot=ops.n / n_slots,
+         stage_s=_stage_s(timer), aten_ops_per_slot=ops.n / n_slots,
          h2d_writes_per_slot=ops.h2d / n_slots,
          fir_up2_fused=dict(kernel_ms=kern["kernel_ms"],
                             plain_ms=kern["plain_ms"],
@@ -1883,10 +1894,11 @@ def phase_rx_per_slot() -> dict:
     if any(launches[k] != v for k, v in want.items()) \
             or sum(launches.values()) != sum(want.values()):
         raise AssertionError(f"rx_per_slot launches {launches}")
-    timer = SyncStageTimer()
+    timer = StageProfiler(DEV)
     sim.run_pdsch_throughput(carrier, pdsch, chan, snrs[:2], use_batch=False,
                              prof=timer, **kw)
-    stage_ms = {k: v * 1e3 / timer.calls[k] for k, v in timer.seconds.items()}
+    stage_ms = {k: 1e3 * v.seconds / v.calls
+                for k, v in timer.stats.items()}
     obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
         carrier, pdsch, chan, -snrs[0], n_slots, seed=3, device=DEV)
     ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
@@ -1997,7 +2009,7 @@ def phase_pdsch_throughput_example() -> dict:
                       config=dict(cfg, snr_db_list=[0.0], n_slots=2))
         torch.cuda.synchronize()
         kernels.reset_launches()
-        timer = SyncStageTimer()
+        timer = StageProfiler(DEV)
         t0 = time.perf_counter()
         res = pdsch_ex.main(["--out-dir", tmp], config=cfg, prof=timer)
         torch.cuda.synchronize()
@@ -2034,7 +2046,7 @@ def phase_pdsch_throughput_example() -> dict:
     SUMMARY["pdsch_example_wall_s"] = wall
     emit("pdsch_throughput_example", snr_db=cfg["snr_db_list"],
          n_slots=cfg["n_slots"], wall_s=wall,
-         stage_s=dict(timer.seconds), pass_rate={
+         stage_s=_stage_s(timer), pass_rate={
              a: res[a] for a in cfg["ceq_algo_list"]},
          tbs_bits=res["tbs_bits"], qm=qm,
          ml_candidates_per_re=(2 ** qm) ** pdsch["num_of_layers"],
@@ -2058,7 +2070,7 @@ def phase_pusch_throughput_example() -> dict:
                       config=dict(cfg, snr_db_list=[0.0], n_slots=2))
         torch.cuda.synchronize()
         kernels.reset_launches()
-        timer = SyncStageTimer()
+        timer = StageProfiler(DEV)
         t0 = time.perf_counter()
         res = pusch_ex.main(["--out-dir", tmp], config=cfg, prof=timer)
         torch.cuda.synchronize()
@@ -2107,7 +2119,7 @@ def phase_pusch_throughput_example() -> dict:
     SUMMARY["pusch_example_wall_s"] = wall
     emit("pusch_throughput_example", snr_db=cfg["snr_db_list"],
          n_slots=cfg["n_slots"], paths=len(chan["multi_paths"]), wall_s=wall,
-         channel_s=timer.seconds["channel"], stage_s=dict(timer.seconds),
+         channel_s=timer.stats["channel"].seconds, stage_s=_stage_s(timer),
          pass_rate=res["MMSE-IRC"], tbs_bits=res["tbs_bits"],
          launches=launches, tdl_filter_rel_err_card_vs_cpu=filt_err,
          pinned_30db=dict(card_passed=int(card[1].sum()),
@@ -2330,6 +2342,222 @@ def phase_ce_dct() -> dict:
                   config=_dct_config, snrs=(0.0, 5.0))
 
 
+# ---------------------------------------------------------------------------
+# parallelism: 2 gloo ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+PAR_WORLD = 2
+PAR_KW = dict(scs=30, bw=100, nant=2, n_slots=20)   # 122.88 -> 245.76 Msps
+
+
+def _bench_ml_slot():
+    """(y, h, cov) on the data REs of one bench slot (phase_ml_equalizers'
+    ML2-IRC input: Nr 4, 2 layers)."""
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+        carrier, pdsch, chan, -20.0, 1, seed=3, device=DEV)
+    ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
+    rx_slot, _, H, cov, est = sim.slot_estimates(obj, slots, rx_fd, [0],
+                                                 ce_cfg)[0]
+    _, sym_idx, re_idx, _ = obj._slot_rx_plan()
+    ssi = pdsch["StartSymbolIndex"]
+    res = est.process_pdsch_data(copy_rx_pdsch_resource(rx_slot, obj.cfg)[0],
+                                 ssi)
+    return (res[sym_idx, re_idx], H[sym_idx + ssi, re_idx],
+            cov[sym_idx + ssi, torch.div(re_idx, 12, rounding_mode="floor")])
+
+
+def _par_rank(rank: int, world: int, port: int, queue) -> None:
+    """One rank of phase_parallel_245: every step sharded over the group
+    (timed, its launches counted), gathered and held by rank 0 against
+    the single-rank path on the card (timed too). Rank 0 puts the rows,
+    and the launches of both ranks, on the queue."""
+    import torch.distributed as dist
+
+    from python_5gtoolbox_tpu_torch.parallel import dryrun, pipeline
+    from python_5gtoolbox_tpu_torch.parallel import mesh as pmesh
+    from python_5gtoolbox_tpu_torch.parallel import timeshard
+    from python_5gtoolbox_tpu_torch.parallel.tp import tp_ml2
+    from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
+
+    pmesh.init_distributed(f"tcp://localhost:{port}", world, rank)
+    if dist.get_backend() != "gloo" or pmesh.rank_device() != DEV:
+        raise AssertionError("parallel_245: ranks must share cuda:0 on gloo")
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    rows = {}
+
+    def bcast(x):                    # rank 0's tensor on every rank
+        t = x.cpu() if rank == 0 else None
+        box = [t]
+        dist.broadcast_object_list(box, src=0)
+        return box[0].to(DEV)
+
+    def sharded(fn, together=True):
+        """fn() warm, then timed with its launches: on every rank
+        (together), or on this one."""
+        fn()
+        torch.cuda.synchronize()
+        if together:
+            dist.barrier()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v
+        return out, ms
+
+    def single(fn):
+        """fn() on this rank alone, warm, then timed."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def row(name, ms, ref_ms=None, **kw):
+        ms_all = [None] * world
+        dist.all_gather_object(ms_all, ms)
+        rows[name] = dict(sharded_ms=max(ms_all), rank_ms=ms_all,
+                          single_rank_ms=ref_ms, **kw)
+
+    sp = pmesh.make_mesh(axis="sp")
+    scs, bw, nant, n_slots = (PAR_KW[k] for k in ("scs", "bw", "nant",
+                                                  "n_slots"))
+    t = n_slots * ofdm.slot_sample_count(scs, bw)
+    g = np.random.default_rng(245)
+    td = torch.as_tensor((g.normal(size=(nant, t)) + 1j * g.normal(
+        size=(nant, t))).astype(np.complex64), device=DEV)
+    local = pmesh.shard_batch(sp, td, "sp", dim=-1)
+    tx, ms = sharded(lambda: timeshard.sharded_tx_channel_filter(
+        local, scs, bw, sp))
+    tx_all = pmesh.gather(sp, tx, "sp", dim=-1)
+    rx, rx_ms = sharded(lambda: timeshard.sharded_rx_channel_filter(
+        tx, scs, bw, sp))
+    rx_all = pmesh.gather(sp, rx, "sp", dim=-1)
+    err = ref_ms = rx_err = rx_ref_ms = None
+    if rank == 0:
+        ref, ref_ms = single(lambda: filters.tx_channel_filter(td, scs, bw))
+        err = (tx_all - ref).abs().max().item()
+        ref, rx_ref_ms = single(lambda: filters.rx_channel_filter(
+            tx_all, scs, bw, 245.76e6))
+        rx_err = (rx_all - ref).abs().max().item()
+        if not (err <= 2e-5 and rx_err <= 2e-5):
+            raise AssertionError(f"parallel_245 timeshard: tx {err}, "
+                                 f"rx {rx_err}")
+    row("timeshard_tx", ms, ref_ms, shape=list(tx_all.shape),
+        max_abs_err=err)
+    row("timeshard_rx", rx_ms, rx_ref_ms, shape=list(rx_all.shape),
+        max_abs_err=rx_err)
+
+    # the ML candidate axis over both ranks, one bench slot
+    y, h, cv = (bcast(v) for v in (_bench_ml_slot() if rank == 0
+                                   else (None,) * 3))
+    tp = pmesh.make_mesh(axis="tp")
+    got, ms = sharded(lambda: tp_ml2(y, h, cv, "256qam", tp, irc=True))
+    err = ref_ms = None
+    if rank == 0:
+        ref, ref_ms = single(lambda: teq.ml2(y, h, cv, "256qam", irc=True))
+        err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1)
+                  for a, b in zip(got, ref))
+        if not torch.equal(got[2], ref[2]) or not err <= 1e-5:
+            raise AssertionError(f"parallel_245 tp_ml2: {err}")
+    row("tp_ml2", ms, ref_ms, res=int(y.shape[0]), candidates=256 ** 2,
+        max_rel_err=err)
+
+    # the two-stage TX pipeline (rank 0: two streams of the card)
+    if rank == 0:
+        prb = carrier_prb_size(scs, bw)
+        fd = torch.as_tensor((g.normal(size=(nant, n_slots, 14, 12 * prb))
+                              + 1j * g.normal(size=(nant, n_slots, 14,
+                                                    12 * prb))
+                              ).astype(np.complex64), device=DEV)
+        pp, ms = sharded(lambda: pipeline.pipelined_tx_waveform(
+            fd, scs, bw, int(3500e6), 245.76e6, devices=[DEV, DEV]), False)
+        ref, ref_ms = single(lambda: pipeline.serial_tx_waveform(
+            fd, scs, bw, int(3500e6), 245.76e6, device=DEV))
+        err = ((pp - ref).abs() - 2e-5 * ref.abs()).max().item()
+        if pp.shape != ref.shape or not err <= 2e-5:
+            raise AssertionError(f"parallel_245 pipeline: {err}")
+        rows["pipeline"] = dict(sharded_ms=ms, single_rank_ms=ref_ms,
+                                shape=list(pp.shape), chunks=n_slots // 4,
+                                max_excess_err=err)
+    dist.barrier()
+
+    # the slot-sharded batched RX at the bench configuration
+    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
+    obj = Pdsch(pdsch, carrier, device=DEV)
+    if rank == 0:
+        obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
+            carrier, pdsch, chan, -5.0, n_slots, seed=3, device=DEV)
+        stack = rx_fd.reshape(rx_fd.shape[0], n_slots, -1).transpose(0, 1)
+    stack = bcast(stack if rank == 0 else None)
+    slots = list(range(n_slots))
+    ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
+    ceq = {"algo": "MMSE-IRC"}
+    dp = pmesh.make_mesh(axis="dp")
+    (ok, tb), ms = sharded(lambda: dryrun.slot_sharded_rx(
+        obj, stack, slots, ceq, ldpc, ce_cfg, dp))
+    ref_ms = None
+    if rank == 0:
+        ref, ref_ms = single(lambda: obj.rx_process_batch(
+            stack, slots, ceq, ldpc, ce_cfg, fetch=False)[:2])
+        if not (torch.equal(ok, ref[0]) and torch.equal(tb, ref[1])):
+            raise AssertionError("parallel_245 batched RX: sharded != "
+                                 "single rank")
+    row("slot_sharded_rx", ms, ref_ms, n_slots=n_slots,
+        tb_passed=int(ok.sum()))
+
+    # the dry run (its own checks against one rank)
+    checks, ms = sharded(lambda: dryrun.dryrun_multichip(world))
+    row("dryrun_multichip", ms, checks=checks)
+
+    every = [None] * world
+    dist.all_gather_object(every, launches)
+    if rank == 0:
+        queue.put(dict(rows=rows, launches={
+            k: sum(d[k] for d in every) for k in launches}))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_parallel_245() -> dict:
+    """parallel/ at full width on 2 gloo ranks sharing cuda:0 (kernels
+    built here first, so the ranks load them): the time-sharded TX and
+    RX channel filters (scs 30 / BW 100, 2 antennas, 20 slots, 245.76
+    Msps), tp_ml2 (256QAM, 2 layers, IRC, soft) on one bench slot, the
+    two-stage pipelined TX waveform (BW 100, 20 slots, two streams), the
+    slot-sharded batched RX at the bench configuration and
+    dryrun_multichip(2): each gathered result held against the
+    single-rank path on the card, each step's sharded ms (warm, the
+    slower rank) beside the single rank's. The launches count the
+    sharded runs of both ranks (warm runs and references excluded).
+    Returns them."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    kernels.build()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    queue = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    mp.spawn(_par_rank, args=(PAR_WORLD, port, queue), nprocs=PAR_WORLD)
+    wall = time.perf_counter() - t0
+    out = queue.get()
+    launches = out["launches"]
+    for k in ("banded_fir", "fir_up2_fused", "ldpc_minsum_flooded",
+              "ldpc_minsum_packed"):
+        if launches[k] <= 0:
+            raise AssertionError(f"parallel_245 launched no {k}: {launches}")
+    emit("parallel_245", ranks=PAR_WORLD, backend="gloo", wall_s=wall,
+         steps=out["rows"], launches=launches)
+    return launches
+
+
 def main() -> None:
     rng = np.random.default_rng(2024)
     phase_device()
@@ -2377,6 +2605,7 @@ def main() -> None:
                        harq=phase_harq())
     phase_ml_equalizers()
     rx_launches["ce_dct"] = phase_ce_dct()
+    par_launches = dict(parallel_245=phase_parallel_245())
     for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
                  "ldpc_minsum_layered_fast"):
         rows[name] = bench_rows[name]
@@ -2390,9 +2619,10 @@ def main() -> None:
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
     # decoder bench through ldpc_decode; ul_launches, dl_launches,
-    # rx_launches and ulc_launches: the uplink phases, the multi-channel DL
-    # phases, the receiver-breadth phases and the UL-control / PRACH phases
-    # that launched the kernel, with their counts
+    # rx_launches, ulc_launches and par_launches: the uplink phases, the
+    # multi-channel DL phases, the receiver-breadth phases, the UL-control /
+    # PRACH phases and the parallel phase that launched the kernel, with
+    # their counts
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
@@ -2427,6 +2657,9 @@ def main() -> None:
                                        if n.get(name, 0) > 0},
                           ulc_launches={ph: n[name] for ph, n in
                                         ulc_launches.items()
+                                        if n.get(name, 0) > 0},
+                          par_launches={ph: n[name] for ph, n in
+                                        par_launches.items()
                                         if n.get(name, 0) > 0}))
     emit("summary", **SUMMARY)
     print(nvidia_smi(), flush=True)

@@ -11,8 +11,8 @@ import json
 import pathlib
 import pickle
 
-from python_5gtoolbox_tpu_torch import resolve_device
-from python_5gtoolbox_tpu_torch.sim.profile_sweep import SyncStageTimer
+from python_5gtoolbox_tpu_torch.utils.platform import select_platform
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 
 
 def run_example(doc: str, config: dict, run, argv=None, ber=False,
@@ -23,18 +23,21 @@ def run_example(doc: str, config: dict, run, argv=None, ber=False,
     snr_db_list), results] (ber: the TB BLER 1 - pass rate per
     equalizer) to <out-dir>/<config['filename']>; profile_json: also
     write the stage seconds and calls there. prof: the stage timer
-    (default a profile_sweep.SyncStageTimer on the device)."""
+    (default a utils.profiling.StageProfiler on the device). The device
+    is --device, else utils.platform.select_platform's (the card, or the
+    host under PY5G_FORCE_CPU=1)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
+                    help="torch device (default: cuda; the CPU under "
+                         "PY5G_FORCE_CPU=1)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the transport blocks and the channel")
     ap.add_argument("--out-dir", default="out/torch")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device = select_platform("sweep", args.device)
     out_dir = pathlib.Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    prof = prof or SyncStageTimer(device)
+    prof = prof or StageProfiler(device)
     results = run(config["carrier"], config["channel"], config["chan_cfg"],
                   config["snr_db_list"], config["ceq_algo_list"],
                   n_slots=config["n_slots"], ce_config=config.get("ce"),
@@ -48,8 +51,8 @@ def run_example(doc: str, config: dict, run, argv=None, ber=False,
         pickle.dump([head, out], f)
     if profile_json:
         with open(out_dir / profile_json, "w") as f:
-            json.dump({k: dict(calls=prof.calls[k], seconds=v)
-                       for k, v in prof.seconds.items()}, f, indent=1)
+            json.dump({k: dict(calls=s.calls, seconds=s.seconds)
+                       for k, s in prof.stats.items()}, f, indent=1)
     for a in algos:
         print(f"{a}: {'BLER' if ber else 'pass rates'} {out[a]}")
     return out

@@ -33,6 +33,7 @@ from python_5gtoolbox_tpu_torch.phy.csirs_report import NrCSIRSReport
 from python_5gtoolbox_tpu_torch.utils.config import get_default_config, merged
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          slots_per_frame)
+from python_5gtoolbox_tpu_torch.utils.platform import select_platform
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 from python_5gtoolbox_tpu_torch.waveform import rx as rx_wf
 
@@ -139,13 +140,15 @@ def main(argv=None, config=None) -> list:
     <out-dir>/<config['filename']>)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
+                    help="torch device (default: cuda; the CPU under "
+                         "PY5G_FORCE_CPU=1)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the channel taps and the noise")
     ap.add_argument("--out-dir", default="out/torch")
     args = ap.parse_args(argv)
     config = config or example_config()
-    rows = run_csirs_report(config, args.device, args.seed)
+    rows = run_csirs_report(config, select_platform("sweep", args.device),
+                            args.seed)
     out_dir = pathlib.Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     reports = [{k: v for k, v in r.items() if k != "rx_slot"} for r in rows]

@@ -16,8 +16,6 @@ repository's waveform bench (bench.py:bench_ofdm_duc).
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -30,6 +28,7 @@ from python_5gtoolbox_tpu_torch.rx.channel_estimate import (
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          fft_size,
                                                          slots_per_frame)
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 from python_5gtoolbox_tpu_torch.waveform import rx as rx_wf
 
@@ -39,18 +38,12 @@ DEFAULT_CE_CONFIG = dict(enable_TO_comp=True, enable_FO_est=True,
                          eRB=2)
 DEFAULT_LDPC_CONFIG = dict(L=16, algo="min-sum", alpha=1.0, beta=0.0)
 
-class _NullProfiler:
-    @contextlib.contextmanager
-    def stage(self, name):
-        yield
-
-
 def slot_estimates(obj, slots, rx_fd, alloc, ce_config, prof=None):
     """The per-slot channel estimation of the reference's loop: for each
     allocated slot index in alloc, H_LS_est and NrChannelEstimation on
     the device -> [(rx_slot (Nr, 14*n_sc), slot, H, cov, est)], each
     charged to prof's channel_est stage."""
-    prof = prof or _NullProfiler()
+    prof = prof or StageProfiler(rx_fd.device)
     slot_size = rx_fd.shape[1] // len(slots)
     out = []
     for i in alloc:
@@ -67,7 +60,7 @@ def rx_slots(obj, estimates, algo, ldpc_config, prof=None, **rx_kw):
     """RX_process of every (rx_slot, slot, H, cov, est) in order, the rv
     cycle restarted (rvidx -1) -> the list of RX_process results, each
     charged to prof's rx_process[<algo>] stage."""
-    prof = prof or _NullProfiler()
+    prof = prof or StageProfiler(obj.device)
     obj.rvidx = -1
     out = []
     for rx_slot, slot, H, cov, est in estimates:
@@ -174,7 +167,7 @@ def pdsch_before_ceq_processing(carrier_config, pdsch_config, chan_cfg,
     """
     dev = resolve_device(device)
     state = state or {}
-    prof = prof or _NullProfiler()
+    prof = prof or StageProfiler(dev)
     scs, bw = carrier_config["scs"], carrier_config["BW"]
     nfft = fft_size(carrier_prb_size(scs, bw))
     fs_hz = carrier_config["samplerate_in_mhz"] * 1e6 \
@@ -234,7 +227,7 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
     flags on the device; the flags of all points come back in one
     transfer at the end and print as '<label> snr=...' lines."""
     dev = resolve_device(device)
-    prof_ = prof or _NullProfiler()
+    prof_ = prof or StageProfiler(dev)
     ldpc_config = dict(DEFAULT_LDPC_CONFIG, **(ldpc_config or {}))
     ce_cfg = _ce_config(ce_config, chan_cfg, carrier_config["scs"])
     period = ch_config["period_in_slot"]

@@ -12,11 +12,12 @@ sweep, pusch_throughput.bench_link_level_pusch_tp_config, at the carrier
 rate) twice after one warm run, at the carrier rate or, with --rate-mhz,
 with the waveform, the channel and the RX front end at that sample rate,
 and prints one JSON line each:
-  * "stages": host wall time per stage of the sweep (tx_waveform,
-    channel, rx_lowphy, rx_batch[MMSE-IRC]; with --per-slot the
-    reference-shaped per-slot RX in place of the batched one:
-    channel_est and rx_process[MMSE-IRC], charged slot by slot), each
-    stage ended by torch.cuda.synchronize();
+  * "stages": time per stage of the sweep (tx_waveform, channel,
+    rx_lowphy, rx_batch[MMSE-IRC]; with --per-slot the reference-shaped
+    per-slot RX in place of the batched one: channel_est and
+    rx_process[MMSE-IRC], charged slot by slot) on the StageProfiler's
+    CUDA events: the span between each stage's two events on the stream,
+    with no synchronisation between stages;
   * "kernels": torch.profiler device time per kernel over one sweep
     without stage synchronisation, the sweep's wall time and the share
     of it the device was busy; with a path argument the Chrome trace of
@@ -26,8 +27,8 @@ and prints one JSON line each:
 With --testmodel (NR-FR1-TM1.1 ... NR-FR1-TM3.1a) it runs that test
 model at full width (scs 30 / BW 100 / TDD, 40 slots at 122.88 Msps,
 payloads from seed 0) through gen_dl_waveform in place of the sweep; its
-"stages", each synchronised and together the whole run, are the channel
-objects' construction (channel_list) and gen_dl_waveform's own:
+"stages", together the whole run, are the channel objects' construction
+(channel_list) and gen_dl_waveform's own:
 slot_grids (every channel's process, slot by slot), low_phy (OFDM and
 slot phase) and channel_filter.
 Needs a CUDA device.
@@ -35,7 +36,6 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import collections
 import contextlib
 import json
 import time
@@ -45,6 +45,7 @@ import torch
 from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tm_script
 from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
 from python_5gtoolbox_tpu_torch.sim import pusch_throughput as usim
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 
 SNRS = [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
@@ -56,26 +57,6 @@ PORT_KERNELS = ("banded_fir_kernel", "ldpc::decode_kernel",
                 "ldpc::decode_warp_kernel", "fir_up2_fused_kernel",
                 "fir_up2_fused_symbols_kernel",
                 "duc_from_spec_kernel")
-
-
-class SyncStageTimer:
-    """sim prof= hook: wall seconds and calls per stage, the card
-    synchronised at the end of each stage so that a stage is charged for
-    its own kernels (device "cpu": nothing to synchronise)."""
-
-    def __init__(self, device="cuda"):
-        self.seconds = collections.defaultdict(float)
-        self.calls = collections.defaultdict(int)
-        self.sync = torch.device(device).type == "cuda"
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        t0 = time.perf_counter()
-        yield
-        if self.sync:
-            torch.cuda.synchronize()
-        self.seconds[name] += time.perf_counter() - t0
-        self.calls[name] += 1
 
 
 def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False,
@@ -138,16 +119,17 @@ def main() -> None:
             return _run_testmodel(tm, prof)
         return _run_sweep(rate, prof, small, pusch, per_slot)
     run()                                                # warm
-    timer = SyncStageTimer()
+    timer = StageProfiler("cuda")
     t0 = time.perf_counter()
     run(timer)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    total = sum(timer.seconds.values())
+    seconds = {k: s.seconds for k, s in timer.stats.items()}
+    total = sum(seconds.values())
     print(json.dumps(dict(
         phase="stages", rate_mhz=rate, small_alloc=small, pusch=pusch,
-        testmodel=tm, per_slot=per_slot, wall_s=wall,
-        seconds=timer.seconds,
-        share={k: v / total for k, v in timer.seconds.items()})), flush=True)
+        testmodel=tm, per_slot=per_slot, wall_s=wall, seconds=seconds,
+        share={k: v / total for k, v in seconds.items()})), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

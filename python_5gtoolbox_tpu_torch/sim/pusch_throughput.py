@@ -20,8 +20,8 @@ from python_5gtoolbox_tpu_torch import resolve_device
 from python_5gtoolbox_tpu_torch.models import channel as chan_mod
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH, uci_on
 from python_5gtoolbox_tpu_torch.rx.equalize import LINEAR_EQUALIZERS
-from python_5gtoolbox_tpu_torch.sim.pdsch_throughput import (_NullProfiler,
-                                                             run_sweep)
+from python_5gtoolbox_tpu_torch.sim.pdsch_throughput import run_sweep
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          fft_size,
                                                          slots_per_frame)
@@ -92,7 +92,7 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
     """
     dev = resolve_device(device)
     state = state or {}
-    prof = prof or _NullProfiler()
+    prof = prof or StageProfiler(dev)
     scs, bw = carrier_config["scs"], carrier_config["BW"]
     fs_hz = fft_size(carrier_prb_size(scs, bw)) * scs * 1000.0
     waveform_config = dict(numofslots=n_slots, startSFN=0, startslot=0,

@@ -27,8 +27,6 @@ the two agree at startslot 0).
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -39,6 +37,7 @@ from python_5gtoolbox_tpu_torch.phy.pdcch import NrSearchSpace, Pdcch
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch
 from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB
 from python_5gtoolbox_tpu_torch.utils import numerology as num
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 
 
 def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
@@ -57,7 +56,8 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     composed branch works on the first PDSCH's or SSB's device; device
     (None -> cuda) is where it works when there is neither (CSI-RS and
     PDCCH carry no device). prof: optional stage timer (an object whose
-    stage(name) is a context manager) charged with the composed branch's
+    stage(name) is a context manager; default a utils.profiling
+    StageProfiler on the channels' device) charged with the composed branch's
     slot_grids (every channel's process), low_phy (OFDM and slot phase)
     and channel_filter stages.
     """
@@ -72,7 +72,6 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     spf = num.slots_per_frame(scs)
     slots = [(start_slot + idx) % spf for idx in range(n_slots)]
     no_dm = Dm is None or not np.any(np.asarray(Dm))
-    stage = prof.stage if prof is not None else _no_stage
 
     single = (len(nrPdsch_list) == 1 and not nrSSB_list and not nrCSIRS_list
               and not nrPDCCH_list and nrPdsch_list[0].tx_batch_supported())
@@ -89,32 +88,29 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
             return (fd.transpose(0, 1).reshape(nant, -1), None, dl,
                     nfft * scs * 1000)
         fd = pdsch.tx_grid_batch(slots, trblks=trblks)
+        prof = prof or StageProfiler(fd.device)
     else:
         if trblks is not None:
             raise ValueError("trblks= needs a single batch-capable PDSCH "
                              "and no other channel")
-        device = next((ch.device for ch in (*nrPdsch_list, *nrSSB_list)),
-                      device)
-        with stage("slot_grids"):
+        device = resolve_device(next(
+            (ch.device for ch in (*nrPdsch_list, *nrSSB_list)), device))
+        prof = prof or StageProfiler(device)
+        with prof.stage("slot_grids"):
             fd = _per_slot_grids(waveform_config, nant, 12 * prb, spf,
                                  nrSSB_list, nrPdsch_list, nrCSIRS_list,
-                                 nrPDCCH_list, resolve_device(device))
-    with stage("low_phy"):
+                                 nrPDCCH_list, device)
+    with prof.stage("low_phy"):
         dm = None if no_dm else torch.as_tensor(np.asarray(Dm),
                                                 device=fd.device)
         td = ofdm.tx_low_phy(fd, scs, bw, fc_hz, dm=dm)
         ph = ofdm._slot_phase_const(scs, fc_hz, n_slots, start_slot)
         td = td * torch.as_tensor(ph, device=fd.device)[:, None, None]
         td_flat = td.transpose(0, 1).reshape(nant, -1)
-    with stage("channel_filter"):
+    with prof.stage("channel_filter"):
         dl = filters.tx_channel_filter(td_flat, scs, bw, out_rate_hz)
     return (fd.transpose(0, 1).reshape(nant, -1), td_flat, dl,
             nfft * scs * 1000)
-
-
-@contextlib.contextmanager
-def _no_stage(name):
-    yield
 
 
 def _per_slot_grids(waveform_config, nant, n_sc, spf, nrSSB_list,

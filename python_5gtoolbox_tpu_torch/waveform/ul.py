@@ -40,7 +40,7 @@ from python_5gtoolbox_tpu_torch.phy.pucch import (
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH
 from python_5gtoolbox_tpu_torch.phy.srs import NrSRS
 from python_5gtoolbox_tpu_torch.utils import numerology as num
-from python_5gtoolbox_tpu_torch.waveform.dl import _no_stage
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 
 
 def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
@@ -55,7 +55,8 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
     (batched branch with return_device=True), ul at
     waveform_config["samplerate_in_mhz"]. trblks (Sa, TBSize), one row
     per allocated slot, replaces the drawn blocks (a single PUSCH only).
-    prof: optional stage timer (an object whose stage(name) is a context
+    prof: optional stage timer (default a utils.profiling.StageProfiler
+    on the channels' device; an object whose stage(name) is a context
     manager) charged with the composed branch's slot_grids (every
     channel's process), low_phy (OFDM and slot phase) and channel_filter
     stages, as gen_dl_waveform's."""
@@ -70,7 +71,6 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
     scs, bw = carrier_config["scs"], carrier_config["BW"]
     spf = num.slots_per_frame(scs)
     slots = [(start_slot + idx) % spf for idx in range(n_slots)]
-    stage = prof.stage if prof is not None else _no_stage
 
     single = (len(nrPusch_list) == 1 and not nrSrs_list
               and not any(pucch_lists)
@@ -87,23 +87,26 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
                 fd = torch.roll(fd, roll, dims=1)  # fd is the unrolled grid
             return fd.transpose(0, 1).reshape(nant, -1), None, ul
         fd = pusch.tx_grid_batch(slots, trblks=trblks)
+        prof = prof or StageProfiler(fd.device)
     else:
         if trblks is not None and len(nrPusch_list) != 1:
             raise ValueError("trblks= needs a single PUSCH")
         pucchs = [ch for group in pucch_lists for ch in group]
-        device = next((ch.device for ch in (*nrPusch_list, *pucchs,
-                                            *nrSrs_list)), None)
-        with stage("slot_grids"):
+        device = resolve_device(next(
+            (ch.device for ch in (*nrPusch_list, *pucchs, *nrSrs_list)),
+            None))
+        prof = prof or StageProfiler(device)
+        with prof.stage("slot_grids"):
             fd = _per_slot_grids(waveform_config, nant,
                                  12 * num.carrier_prb_size(scs, bw), spf,
-                                 nrPusch_list, pucchs, nrSrs_list,
-                                 resolve_device(device), trblks)
-    with stage("low_phy"):
+                                 nrPusch_list, pucchs, nrSrs_list, device,
+                                 trblks)
+    with prof.stage("low_phy"):
         td = ofdm.tx_low_phy(fd, scs, bw, fc_hz)
         ph = ofdm._slot_phase_const(scs, fc_hz, n_slots, start_slot)
         td = td * torch.as_tensor(ph, device=fd.device)[:, None, None]
         td_flat = td.transpose(0, 1).reshape(nant, -1)
-    with stage("channel_filter"):
+    with prof.stage("channel_filter"):
         ul = filters.tx_channel_filter(td_flat, scs, bw, out_rate_hz)
     return fd.transpose(0, 1).reshape(nant, -1), td_flat, ul
 

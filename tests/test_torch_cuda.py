@@ -1028,3 +1028,59 @@ def test_csirs_report_example_on_card_matches_cpu(cuda_device, tmp_path):
     assert len(card) == len(cpu) == 1
     for key in ("RI", "PMI", "CQI", "subband_CQI"):
         assert card[0][key] == cpu[0][key], key
+
+
+def test_stage_profiler_times_stages_with_events(cuda_device):
+    """StageProfiler on the card: a stage's time is the span between its
+    two events on the stream (here a spin kernel of known cycles), read
+    with one synchronize when the stats are asked for."""
+    from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+
+    prof = StageProfiler(cuda_device)
+    x = torch.randn((4, 307200), device=cuda_device)
+    filters.banded_fir(x, filters.fir_coeff(30, 100), "same")   # built
+    torch.cuda.synchronize()
+    with prof.stage("spin", items=2, unit="spins"):
+        torch.cuda._sleep(20_000_000)
+    for _ in range(2):
+        with prof.stage("fir"):
+            filters.banded_fir(x, filters.fir_coeff(30, 100), "same")
+    assert len(prof._pending) == 3           # nothing resolved yet
+    spin, fir = prof.stats["spin"], prof.stats["fir"]
+    assert not prof._pending
+    assert (spin.calls, fir.calls) == (1, 2)
+    assert spin.seconds > 1e-3                # 2e7 cycles at <= 2 GHz
+    assert 0 < fir.seconds < spin.seconds
+    assert prof.rate("spin") == 2 / spin.seconds
+    assert prof.check_dispatch_routing() == []
+
+
+def test_timeshard_two_ranks_on_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing cuda:0 (tests/torch_parallel_ranks.py,
+    run_card): the time-sharded TX and RX filters through banded_fir,
+    gathered, within 2e-5 of the unsharded filters on the card."""
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+
+    script = pathlib.Path(__file__).resolve().parent / \
+        "torch_parallel_ranks.py"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    out = tmp_path / "card.pt"
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), "2",
+                               port, str(out), "cuda"],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    res = torch.load(out)
+    # per rank: FIR same + one up2 (TX), one down2 + FIR same (RX)
+    assert res["launches"]["banded_fir"] == 4
+    for k in ("tx", "rx"):
+        assert res[k].shape == res[k + "_ref"].shape
+        assert (res[k] - res[k + "_ref"]).abs().max().item() < 2e-5

@@ -239,7 +239,9 @@ def _forbidden_imports(path: pathlib.Path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tests" /
+                                          "torch_parallel_ranks.py"]
     assert len(files) > 20
     assert PORT / "sim" / "ldpc_decoder.py" in files
     for rel in ("ops/polar/decode.py", "ops/polar/segment.py",
@@ -253,7 +255,10 @@ def test_port_sources_import_no_jax():
                 "sim/nr_pusch_throughput_example.py",
                 "sim/nr_pusch_ber_example.py", "phy/pucch.py",
                 "phy/srs.py", "phy/prach.py", "models/pathloss.py",
-                "sim/nr_csirs_report_example.py"):
+                "sim/nr_csirs_report_example.py", "utils/platform.py",
+                "utils/profiling.py", "parallel/mesh.py",
+                "parallel/timeshard.py", "parallel/tp.py",
+                "parallel/pipeline.py", "parallel/dryrun.py"):
         assert PORT / rel in files, rel
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad

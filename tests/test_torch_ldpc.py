@@ -5,7 +5,10 @@ plain flooded min-sum decoder bit for bit against the JAX decoder
 nodes and algorithms are in tests/test_torch_ldpc_variants.py.
 
 Coded bits and decoded bits must match exactly; recovered LLRs within
-1e-5 (float32 averaging of repeated bits, as the JAX test allows).
+1e-5 (float32 averaging of repeated bits, as the JAX test allows). The
+JAX decodes come from recordings of the frozen JAX package
+(tests/torch_oracles), checked against its sources, jax's version and
+the inputs each test regenerates.
 """
 import dataclasses
 
@@ -22,6 +25,8 @@ from python_5gtoolbox_tpu.ops.ldpc.decode import ldpc_decode as jax_decode
 
 from python_5gtoolbox_tpu_torch.ops import ldpc as TL
 from python_5gtoolbox_tpu_torch.ops.ldpc.decode import ldpc_decode
+
+from tests.torch_oracles import jax_tuple
 
 
 def _no_golden_gen():
@@ -135,6 +140,11 @@ def test_ratematch_lbrm_matches_jax():
 # Decoder: bit for bit with the JAX decoder
 # ---------------------------------------------------------------------------
 
+def _recorded(case, inputs, decode):
+    return jax_tuple(case, ("python_5gtoolbox_tpu.ops.ldpc.decode",), inputs,
+                     decode)
+
+
 DEC_CASES = [
     # (zc, bgn, batch, snr_db, alpha, beta, n_iter); cases of one shape
     # share one JAX compilation
@@ -157,8 +167,11 @@ def test_decode_matches_jax(case):
     sigma2 = 10 ** (-snr / 10)
     llr = ((2 / sigma2) * (1 - 2.0 * dn + rng.normal(size=dn.shape)
                            * np.sqrt(sigma2))).astype(np.float32)
-    b1, ok1, f1 = jax_decode(jnp.asarray(llr), zc, bgn, n_iter, "min-sum",
-                             alpha, beta, backend="jax")
+    b1, ok1, f1 = _recorded(
+        "ldpc_flooded_zc{}_bg{}_b{}_snr{}_a{}_b{}_it{}".format(*case),
+        (bits, llr, n_iter, alpha, beta),
+        lambda: jax_decode(jnp.asarray(llr), zc, bgn, n_iter, "min-sum",
+                           alpha, beta, backend="jax"))
     b2, ok2, f2 = ldpc_decode(torch.as_tensor(llr), zc, bgn, n_iter,
                               "min-sum", alpha, beta)
     np.testing.assert_array_equal(f2.numpy(), np.asarray(f1))
@@ -177,8 +190,10 @@ def test_decode_garbage_llrs_match_jax():
     zc, bgn = 10, 1
     llr = (2.0 * rng.normal(size=(8, 66 * zc))).astype(np.float32)
     llr[:, ::7] = 0.0          # zero LLRs exercise the sign(0) = 0 rule
-    _, ok1, f1 = jax_decode(jnp.asarray(llr), zc, bgn, 4, "min-sum", 1.0,
-                            0.0, backend="jax")
+    _, ok1, f1 = _recorded(
+        "ldpc_flooded_garbage", (llr,),
+        lambda: jax_decode(jnp.asarray(llr), zc, bgn, 4, "min-sum", 1.0,
+                           0.0, backend="jax"))
     _, ok2, f2 = ldpc_decode(torch.as_tensor(llr), zc, bgn, 4, "min-sum",
                              1.0, 0.0)
     np.testing.assert_array_equal(f2.numpy(), np.asarray(f1))

@@ -21,6 +21,11 @@ wherever the product is exact (alpha a power of two) and on codewords
 that converge; on never-converging LLRs with alpha = 0.8 the interpreted
 layered kernel differs from _ldpc_decode_jit itself in a few bits. So the
 never-converging cases against the interpreted kernels use alpha = 0.5.
+
+The JAX decodes (the interpreted Pallas kernels above all, a minute or
+more of compiling each) come from recordings of the frozen JAX package
+(tests/torch_oracles), checked against its sources, jax's version and
+the inputs each test regenerates.
 """
 import numpy as np
 import pytest
@@ -37,7 +42,15 @@ from python_5gtoolbox_tpu.ops.ldpc.pallas_decode import ldpc_decode_pallas
 from python_5gtoolbox_tpu_torch.ops import ldpc as TL
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as tdec
 
+from tests.torch_oracles import jax_tuple
+
 N_ITER = 8
+JAX_LDPC = ("python_5gtoolbox_tpu.ops.ldpc.decode",
+            "python_5gtoolbox_tpu.ops.ldpc.pallas_decode")
+
+
+def _recorded(case, inputs, decode):
+    return jax_tuple(case, JAX_LDPC, inputs, decode)
 
 
 def _noisy(zc, bgn, batch, snr_db, seed):
@@ -71,8 +84,11 @@ CODES = [(16, 2, 0.8, 0.3), (10, 1, 1.0, 0.0), (52, 2, 0.75, 0.0)]
 @pytest.mark.parametrize("zc,bgn,alpha,beta", CODES)
 def test_layered_matches_jax(zc, bgn, alpha, beta):
     bits, llr = _noisy(zc, bgn, 12, 1.0, zc * bgn)
-    ref = jax_decode(jnp.asarray(llr), zc, bgn, N_ITER, "min-sum", alpha,
-                     beta, backend="jax", schedule="layered")
+    ref = _recorded(
+        f"ldpc_layered_{zc}_{bgn}_{alpha}_{beta}",
+        (bits, llr, N_ITER, alpha, beta),
+        lambda: jax_decode(jnp.asarray(llr), zc, bgn, N_ITER, "min-sum",
+                           alpha, beta, backend="jax", schedule="layered"))
     got = TL.ldpc_decode(torch.as_tensor(llr), zc, bgn, N_ITER, "min-sum",
                          alpha, beta, schedule="layered")
     _assert_same(got, ref)
@@ -83,8 +99,10 @@ def test_layered_matches_jax(zc, bgn, alpha, beta):
 
 def test_layered_nonconverging_matches_jax():
     llr = _garbage(16, 1, 9, 7)
-    ref = jax_decode(jnp.asarray(llr), 16, 1, 6, "min-sum", 1.0, 0.0,
-                     backend="jax", schedule="layered")
+    ref = _recorded(
+        "ldpc_layered_nonconverging", (llr,),
+        lambda: jax_decode(jnp.asarray(llr), 16, 1, 6, "min-sum", 1.0, 0.0,
+                           backend="jax", schedule="layered"))
     got = TL.ldpc_decode(torch.as_tensor(llr), 16, 1, 6, "min-sum", 1.0, 0.0,
                          schedule="layered")
     _assert_same(got, ref)
@@ -99,9 +117,12 @@ def test_layered_nonconverging_matches_jax():
 def test_plain_matches_packed_pallas_kernel(zc, bgn, alpha, beta, schedule):
     """The small-lifting TPU kernel in interpret mode, exact check node."""
     _, llr = _noisy(zc, bgn, 10, 1.0, zc + bgn)
-    ref = ldpc_decode_pallas(jnp.asarray(llr), zc, bgn, N_ITER, alpha, beta,
-                             schedule=schedule, interpret=True,
-                             layout="packed")
+    ref = _recorded(
+        f"ldpc_pallas_packed_{zc}_{bgn}_{alpha}_{beta}_{schedule}",
+        (llr, N_ITER, alpha, beta, schedule),
+        lambda: ldpc_decode_pallas(jnp.asarray(llr), zc, bgn, N_ITER, alpha,
+                                   beta, schedule=schedule, interpret=True,
+                                   layout="packed"))
     got = TL.ldpc_decode(torch.as_tensor(llr), zc, bgn, N_ITER, "min-sum",
                          alpha, beta, schedule=schedule, layout="packed")
     _assert_same(got, ref)
@@ -118,9 +139,12 @@ def test_fast_matches_pallas_kernel(kind, alpha, schedule, layout):
     zc, bgn, beta = 16, 2, 0.3
     llr = (_noisy(zc, bgn, 12, 1.0, 3)[1] if kind == "noisy"
            else _garbage(zc, bgn, 12, 4))
-    ref = ldpc_decode_pallas(jnp.asarray(llr), zc, bgn, N_ITER, alpha, beta,
-                             schedule=schedule, interpret=True, layout=layout,
-                             semantics="fast")
+    ref = _recorded(
+        f"ldpc_pallas_fast_{kind}_{schedule}_{layout}",
+        (llr, N_ITER, alpha, beta, schedule, layout),
+        lambda: ldpc_decode_pallas(jnp.asarray(llr), zc, bgn, N_ITER, alpha,
+                                   beta, schedule=schedule, interpret=True,
+                                   layout=layout, semantics="fast"))
     got = TL.ldpc_decode(torch.as_tensor(llr), zc, bgn, N_ITER, "min-sum",
                          alpha, beta, schedule=schedule, semantics="fast",
                          layout=layout)
@@ -168,8 +192,10 @@ def test_bp_check_node_matches_jax():
 def test_bp_decode_matches_jax():
     zc, bgn = 16, 2
     bits, llr = _noisy(zc, bgn, 12, 3.0, 5)
-    b1, ok1, _ = jax_decode(jnp.asarray(llr), zc, bgn, N_ITER, "BP",
-                            backend="jax")
+    b1, ok1, _ = _recorded(
+        "ldpc_bp", (llr, N_ITER),
+        lambda: jax_decode(jnp.asarray(llr), zc, bgn, N_ITER, "BP",
+                           backend="jax"))
     b2, ok2, _ = TL.ldpc_decode(torch.as_tensor(llr), zc, bgn, N_ITER, "BP")
     ok = np.asarray(ok1)
     np.testing.assert_array_equal(ok2.numpy(), ok)
@@ -188,7 +214,8 @@ def test_bit_flipping_matches_jax(n_iter):
     sigma = 10 ** (-4.0 / 20)
     llr = ((1 - 2 * full) + rng.normal(0, sigma, full.shape)
            ).astype(np.float32)
-    ref = jax_bf(jnp.asarray(llr), zc, bgn, n_iter)
+    ref = _recorded(f"ldpc_bit_flipping_{n_iter}", (llr, n_iter),
+                    lambda: jax_bf(jnp.asarray(llr), zc, bgn, n_iter))
     got = TL.ldpc_decode_bf(torch.as_tensor(llr), zc, bgn, n_iter)
     _assert_same(got, ref)
     assert got[0].dtype == torch.int8

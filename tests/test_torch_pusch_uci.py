@@ -32,6 +32,8 @@ from python_5gtoolbox_tpu_torch.phy import pusch_uci as tuci
 from python_5gtoolbox_tpu_torch.utils.numerology import carrier_prb_size
 from python_5gtoolbox_tpu_torch.waveform import ul as tul
 
+from tests.torch_oracles import jax_outputs
+
 UCI_CASES = [4, 5, 6, 9]              # the pusch_slot2 cases with UCI
 
 
@@ -199,27 +201,13 @@ def _uci_config(ack_bits, csi1_bits, csi1_payload):
     return carrier, pusch
 
 
-@pytest.mark.parametrize("ack_bits,csi1_bits,seed", [
-    ([1, 0], 5, 0),      # 2-bit ACK (special table) + 5-bit CSI1 (RM)
-    ([], 14, 6)])        # 14-bit CSI1: polar CA-SCL
-def test_uci_path_matches_jax(ack_bits, csi1_bits, seed):
-    """The per-slot gen_ul_waveform branch against the JAX package's
-    (1.2e-4), then the same noisy slots (JAX channel at 8 dB SNR, JAX RX
-    front end) through both packages' batched UCI RX: ok, TB bits and
-    every UCI stream's bits and flags equal, and equal to what was
-    sent."""
-    payload = np.random.default_rng(seed).integers(0, 2, csi1_bits).tolist()
-    carrier, pusch = _uci_config(ack_bits, csi1_bits, payload)
-    wf = dict(numofslots=S, startSFN=0, startslot=0, samplerate_in_mhz=30.72)
+def _uci_path_jax(carrier, pusch, wf):
+    """The JAX side of test_uci_path_matches_jax: the waveform, the noisy
+    slots (JAX channel at 8 dB SNR, JAX RX front end) and the batched UCI
+    RX's ok, TB bits and UCI streams."""
     fd_j, _, ul_j = jul.gen_ul_waveform(wf, dict(carrier),
                                         [jpusch.NrPUSCH(dict(carrier),
                                                         dict(pusch))])
-    fd_t, _, ul_t = tul.gen_ul_waveform(
-        wf, dict(carrier), [tpusch.NrPUSCH(dict(carrier), dict(pusch),
-                                           device="cpu")])
-    np.testing.assert_allclose(fd_t.numpy(), np.asarray(fd_j), atol=1e-6)
-    np.testing.assert_allclose(ul_t.numpy(), np.asarray(ul_j), atol=1.2e-4)
-
     chan_cfg = jchan.gen_channel_model_config(
         model_format="customized", Nt=2, Nr=4,
         multi_paths=[[0, 0, "Rayleigh", 0, 0]])
@@ -233,12 +221,46 @@ def test_uci_path_matches_jax(ack_bits, csi1_bits, seed):
     ok_j, tb_j, uci_j = jpusch.NrPUSCH(dict(carrier), dict(
         pusch)).rx_process_batch(slots, list(range(S)), {"algo": "MMSE-IRC"},
                                  dict(LDPC), dict(CE))
+    out = dict(fd=fd_j, ul=ul_j, slots=slots, ok=ok_j, tb=tb_j)
+    for name, (bits, okk) in uci_j.items():
+        out["uci_" + name], out["uok_" + name] = bits, okk
+    return out
+
+
+@pytest.mark.parametrize("ack_bits,csi1_bits,seed", [
+    ([1, 0], 5, 0),      # 2-bit ACK (special table) + 5-bit CSI1 (RM)
+    ([], 14, 6)])        # 14-bit CSI1: polar CA-SCL
+def test_uci_path_matches_jax(ack_bits, csi1_bits, seed):
+    """The per-slot gen_ul_waveform branch against the JAX package's
+    (1.2e-4), then the same noisy slots (JAX channel at 8 dB SNR, JAX RX
+    front end) through both packages' batched UCI RX: ok, TB bits and
+    every UCI stream's bits and flags equal, and equal to what was
+    sent."""
+    payload = np.random.default_rng(seed).integers(0, 2, csi1_bits).tolist()
+    carrier, pusch = _uci_config(ack_bits, csi1_bits, payload)
+    wf = dict(numofslots=S, startSFN=0, startslot=0, samplerate_in_mhz=30.72)
+    jx = jax_outputs(
+        f"uci_path_ack{len(ack_bits)}_csi{csi1_bits}",
+        [f"python_5gtoolbox_tpu.{m}" for m in (
+            "waveform.ul", "phy.pusch", "phy.pusch_rx", "models.channel",
+            "waveform.rx")],
+        (carrier, pusch, wf, LDPC, CE),
+        lambda: _uci_path_jax(carrier, pusch, wf))
+    fd_t, _, ul_t = tul.gen_ul_waveform(
+        wf, dict(carrier), [tpusch.NrPUSCH(dict(carrier), dict(pusch),
+                                           device="cpu")])
+    np.testing.assert_allclose(fd_t.numpy(), jx["fd"], atol=1e-6)
+    np.testing.assert_allclose(ul_t.numpy(), jx["ul"], atol=1.2e-4)
+
+    slots = jx["slots"]
     ok_t, tb_t, uci_t = tpusch.NrPUSCH(dict(carrier), dict(pusch),
                                        device="cpu").rx_process_batch(
         slots, list(range(S)), {"algo": "MMSE-IRC"}, dict(LDPC), dict(CE))
-    np.testing.assert_array_equal(ok_t, np.asarray(ok_j))
-    np.testing.assert_array_equal(tb_t, np.asarray(tb_j))
+    np.testing.assert_array_equal(ok_t, jx["ok"])
+    np.testing.assert_array_equal(tb_t, jx["tb"])
     assert ok_t.all()
+    uci_j = {k[4:]: (jx[k], jx["uok_" + k[4:]]) for k in jx
+             if k.startswith("uci_")}
     assert sorted(uci_t) == sorted(uci_j)
     sent = dict(ack=ack_bits, csi1=payload)
     for name, (bits_j, okk_j) in uci_j.items():

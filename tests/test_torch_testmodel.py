@@ -8,7 +8,6 @@ PDSCH; 2 antennas, 4 slots) against the JAX package on the same payloads
 single-PDSCH branch against the composed one at startslot 3, and
 sim/gen_nr_testmodel.py end to end.
 """
-import contextlib
 import copy
 
 import numpy as np
@@ -30,6 +29,7 @@ from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch
 from python_5gtoolbox_tpu_torch.sim import gen_nr_testmodel as tscript
 from python_5gtoolbox_tpu_torch.utils import numerology as num
 from python_5gtoolbox_tpu_torch.utils.config import get_default_config
+from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
 from python_5gtoolbox_tpu_torch.waveform import dl as tdl
 
 _LIST_KEYS = ("ssb_config", "pdcch_config_list", "search_space_list",
@@ -149,25 +149,18 @@ def test_pdsch_asserts_like_jax():
 
 
 def test_stage_timer_sees_the_composed_stages():
-    """prof= is charged with the composed branch's three stages in order,
-    and leaves the waveform as it is."""
-    class Recorder:
-        def __init__(self):
-            self.names = []
-
-        @contextlib.contextmanager
-        def stage(self, name):
-            self.names.append(name)
-            yield
-
+    """prof= (a utils.profiling.StageProfiler) is charged with the
+    composed branch's three stages in order, once each, and leaves the
+    waveform as it is."""
     kw = tscript.dl_multichannel_config(n_slots=2, samplerate_in_mhz=61.44)
     wf, carrier = kw["waveform_config"], kw["carrier_config"]
     args = [kw[k] for k in _LIST_KEYS]
-    rec = Recorder()
+    rec = StageProfiler("cpu")
     out = [tdl.gen_dl_waveform(wf, carrier, *tdl.gen_dl_channel_list(
         wf, carrier, *args, seed=2, device="cpu"), prof=prof)
         for prof in (None, rec)]
-    assert rec.names == ["slot_grids", "low_phy", "channel_filter"]
+    assert list(rec.stats) == ["slot_grids", "low_phy", "channel_filter"]
+    assert [s.calls for s in rec.stats.values()] == [1, 1, 1]
     for a, b in zip(out[0][:3], out[1][:3]):
         assert torch.equal(a, b)
 
