@@ -584,7 +584,7 @@ def ldpc_minsum_packed(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
 def ldpc_decode(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
                 algo: str = "min-sum", alpha: float = 1.0, beta: float = 0.0,
                 schedule: str = "flooded", semantics: str = "exact",
-                layout: str = "auto"):
+                layout: str = "auto", iters_out: torch.Tensor | None = None):
     """Decode (B, N) LLRs (punctured codeword, LLR>0 => bit 0).
 
     Returns (bits (B, K) int8, ok (B,) bool, full_bits (B, ncols*Zc)).
@@ -597,7 +597,10 @@ def ldpc_decode(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
     shared memory; the bits are the same either way. algo="BP" runs as
     plain tensor code on the tensor's device (the JAX package has no
     kernel for it either), and a CPU tensor always takes the plain
-    version.
+    version. iters_out, a (B,) int32 tensor on the card, is handed to the
+    kernel, which writes the number of updates each codeword ran
+    (ldpc_minsum); the plain version counts none and refuses it
+    (ValueError).
     """
     if schedule not in ("flooded", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -611,14 +614,17 @@ def ldpc_decode(llr_in: torch.Tensor, zc: int, bgn: int, n_iter: int,
         raise ValueError("layered schedule is min-sum family only")
     llr_in = llr_in.to(torch.float32)
     if llr_in.device.type == "cpu" or algo == "BP":
+        if iters_out is not None:
+            raise ValueError("iters_out needs the card's min-sum kernels; "
+                             "the plain decoder counts no iterations")
         return _ldpc_decode_plain(llr_in, zc, bgn, n_iter, alpha, beta,
                                   schedule, semantics, algo)
     if layout == "auto":
         layout = ("packed" if zc < 128 and packed_group_limit(zc, bgn) >= 1
                   else "batch")
     fn = ldpc_minsum_packed if layout == "packed" else ldpc_minsum
-    return fn(llr_in, zc, bgn, n_iter, alpha, beta, schedule=schedule,
-              semantics=semantics)
+    return fn(llr_in, zc, bgn, n_iter, alpha, beta, iters_out,
+              schedule=schedule, semantics=semantics)
 
 
 def ldpc_decode_bf(llr_full: torch.Tensor, zc: int, bgn: int, n_iter: int):

@@ -30,6 +30,7 @@ from python_5gtoolbox_tpu_torch.phy import tbsize as tbs_mod
 from python_5gtoolbox_tpu_torch.phy.grid import write_res
 from python_5gtoolbox_tpu_torch.utils.numerology import (RE_USAGE,
                                                          carrier_prb_size)
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 
 
 def dlsch_encode(trblk: torch.Tensor, tbsize: int, qm: int,
@@ -246,30 +247,33 @@ class SlotBatchTx:
                                  f"{self.tbsize}), got {tuple(trb.shape)}")
         precoded = self.encode_symbols(
             trb, rvs, torch.as_tensor(prec, device=dev))  # (Sa, ant, n_re)
-        dmrs_key = ("dmrs", roll_ant) + tuple(
-            int(slot_list[i]) for i in active_idx)
-        if dmrs_key not in self._cache:
-            self._cache[dmrs_key] = torch.as_tensor(np.stack(
-                [self._dmrs_values(int(slot_list[i]), precoding=prec)
-                 for i in active_idx]), device=dev)
-        composed = _pdsch_compose_grid(precoded, self._cache[dmrs_key],
-                                       layout)
-        if len(active_idx) == s_dim:
-            return composed
-        grid[torch.as_tensor(active_idx, device=dev)] = composed
-        return grid
+        with span("tx.grid"):
+            dmrs_key = ("dmrs", roll_ant) + tuple(
+                int(slot_list[i]) for i in active_idx)
+            if dmrs_key not in self._cache:
+                self._cache[dmrs_key] = torch.as_tensor(np.stack(
+                    [self._dmrs_values(int(slot_list[i]), precoding=prec)
+                     for i in active_idx]), device=dev)
+            composed = _pdsch_compose_grid(precoded, self._cache[dmrs_key],
+                                           layout)
+            if len(active_idx) == s_dim:
+                return composed
+            grid[torch.as_tensor(active_idx, device=dev)] = composed
+            return grid
 
     def coded_bits(self, trb: torch.Tensor, rvs, encode) -> torch.Tensor:
         """(Sa, G) int8 coded bits, one encode(trb rows, rv, G) call per
-        distinct rv."""
+        distinct rv (span tx.sch_encode)."""
         n_layers = self.cfg["num_of_layers"]
         G = self.qm * n_layers * self._tx_layout()[1]
-        g_seq = torch.zeros((len(rvs), G), dtype=torch.int8,
-                            device=self.device)
-        for rv in sorted(set(rvs)):
-            idx = torch.as_tensor([k for k, v in enumerate(rvs) if v == rv],
-                                  device=self.device)
-            g_seq[idx] = encode(trb[idx], rv, G)
+        with span("tx.sch_encode"):
+            g_seq = torch.zeros((len(rvs), G), dtype=torch.int8,
+                                device=self.device)
+            for rv in sorted(set(rvs)):
+                idx = torch.as_tensor(
+                    [k for k, v in enumerate(rvs) if v == rv],
+                    device=self.device)
+                g_seq[idx] = encode(trb[idx], rv, G)
         return g_seq
 
 
@@ -320,8 +324,10 @@ class Pdsch(SlotBatchTx):
         g_seq = self.coded_bits(trb, rvs, lambda t, rv, G: dlsch_encode(
             t, self.tbsize, self.qm, self.rate1024, n_layers, rv,
             self.tbs_lbrm, G))
-        return pdsch_symbol_encode(g_seq, self.scramble_seq(g_seq.shape[1]),
-                                   prec, self.qm, n_layers)
+        with span("tx.symbols"):
+            return pdsch_symbol_encode(
+                g_seq, self.scramble_seq(g_seq.shape[1]), prec, self.qm,
+                n_layers)
 
     # -- per-slot TX into a shared grid (the multi-channel waveform) --------
     def process(self, fd_slot: torch.Tensor, usage: np.ndarray, slot: int):

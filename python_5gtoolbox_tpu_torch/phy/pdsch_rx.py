@@ -41,6 +41,7 @@ from python_5gtoolbox_tpu_torch.rx.batch_core import (data_re_layout,
                                                       ls_estimate)
 from python_5gtoolbox_tpu_torch.rx.demod import demodulate
 from python_5gtoolbox_tpu_torch.rx.equalize import channel_equ_and_demod
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 
 
 def _dmrs_scaling(ncdm: int) -> float:
@@ -282,27 +283,35 @@ class PdschRxMixin:
         returns numpy arrays. HARQ chains: pass rv=, llr_prev= (the (S,
         C, N) buffer of the previous transmission) and return_llr=True;
         the return then gains the combined buffer, kept on the device.
+
+        The core's inputs (the slots' DMRS and the descrambling sign,
+        made on the host once per object and copied to the device) are
+        the span rx.prepare; the core records the spans rx.ce, rx.gather,
+        rx.equalize, rx.ratematch and rx.ldpc (utils.profiling.span).
         """
         harq = return_llr or llr_prev is not None
         dev = self.device
-        rx = torch.as_tensor(rx_fd_slots, device=dev).to(torch.complex64)
-        cache = self._cache
-        ck = ("rx", tuple(int(s) for s in slot_list), CEQ_config["algo"],
-              harq, None if rv is None else int(rv), rx.shape[1],
-              tuple(sorted((k, v) for k, v in LDPC_decoder_config.items()
-                           if not callable(v))),
-              tuple(sorted((k, v) for k, v in ce_config.items()
-                           if isinstance(v, (int, float, str, bool)))))
-        if ck not in cache:
-            fn, dmrs, scr_sign = self.rx_batch_prepare(
-                rx.shape[1], slot_list, CEQ_config, LDPC_decoder_config,
-                ce_config, rv=rv, harq=harq)
-            cache[ck] = (fn, torch.as_tensor(dmrs, device=dev),
-                         torch.as_tensor(scr_sign, device=dev))
-        fn, dmrs, scr_sign = cache[ck]
-        if harq:
+        with span("rx.prepare"):
+            rx = torch.as_tensor(rx_fd_slots, device=dev).to(
+                torch.complex64)
+            cache = self._cache
+            ck = ("rx", tuple(int(s) for s in slot_list),
+                  CEQ_config["algo"], harq, None if rv is None else int(rv),
+                  rx.shape[1],
+                  tuple(sorted((k, v) for k, v in LDPC_decoder_config.items()
+                               if not callable(v))),
+                  tuple(sorted((k, v) for k, v in ce_config.items()
+                               if isinstance(v, (int, float, str, bool)))))
+            if ck not in cache:
+                fn, dmrs, scr_sign = self.rx_batch_prepare(
+                    rx.shape[1], slot_list, CEQ_config,
+                    LDPC_decoder_config, ce_config, rv=rv, harq=harq)
+                cache[ck] = (fn, torch.as_tensor(dmrs, device=dev),
+                             torch.as_tensor(scr_sign, device=dev))
+            fn, dmrs, scr_sign = cache[ck]
             prev = None if llr_prev is None else torch.as_tensor(
                 llr_prev, device=dev)
+        if harq:
             outs = fn(rx, dmrs, scr_sign, prev)
         else:
             outs = fn(rx, dmrs, scr_sign)

@@ -42,6 +42,7 @@ from python_5gtoolbox_tpu_torch.phy.pusch_uci import (
 from python_5gtoolbox_tpu_torch.phy.validate import validate_pusch_config
 from python_5gtoolbox_tpu_torch.utils.numerology import (RE_USAGE,
                                                          carrier_prb_size)
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 
 
 def ulsch_encode_batch(trb: torch.Tensor, tbsize: int, qm: int,
@@ -190,10 +191,11 @@ class NrPUSCH(SlotBatchTx):
         n_layers = cfg["num_of_layers"]
         g_seq = self.coded_bits(trb, rvs, lambda t, rv, G: ulsch_encode_batch(
             t, self.tbsize, self.qm, self.rate1024, n_layers, rv, G))
-        return pusch_symbol_encode(
-            g_seq, self.scramble_seq(g_seq.shape[1]), prec, self.qm,
-            n_layers, cfg["nTransPrecode"],
-            cfg["ResAlloType1"]["RBSize"] * 12)
+        with span("tx.symbols"):
+            return pusch_symbol_encode(
+                g_seq, self.scramble_seq(g_seq.shape[1]), prec, self.qm,
+                n_layers, cfg["nTransPrecode"],
+                cfg["ResAlloType1"]["RBSize"] * 12)
 
     def process(self, fd_slot: torch.Tensor, usage: np.ndarray,
                 slot: int, trblk=None):

@@ -29,6 +29,7 @@ from python_5gtoolbox_tpu_torch.rx import ce_batch
 from python_5gtoolbox_tpu_torch.rx.demod import demodulate
 from python_5gtoolbox_tpu_torch.rx.equalize import (
     LINEAR_EQUALIZERS, equalize_and_demod_traced, mmse, zf)
+from python_5gtoolbox_tpu_torch.utils import profiling
 
 
 def data_re_layout(ports, nl: int, ncdm: int, rb_size: int, ssi: int,
@@ -168,90 +169,109 @@ def build_batch_rx_core(*, rb_start, rb_size, ssi, nsym, ports, nl,
     def core(fd, dm, scr_sign, llr_prev=None):
         s = fd.shape[0]
         dev = fd.device
-        h_ls = ls_estimate(fd, dm, symlist, ports, nl, rb_start, rb_size,
-                           n_sc, scaling)
-
         # ---- channel estimation
-        est = ce_batch.channel_est_batch(h_ls, rs_info, ce_config)
-        H, cov = est["H"], est["cov"]
+        with profiling.span("rx.ce"):
+            h_ls = ls_estimate(fd, dm, symlist, ports, nl, rb_start,
+                               rb_size, n_sc, scaling)
+            est = ce_batch.channel_est_batch(h_ls, rs_info, ce_config)
+            H, cov = est["H"], est["cov"]
 
-        # ---- data resource copy + TO/FO compensation
-        res = torch.stack([
-            fd[:, :, (ssi + k) * n_sc + rb_start * 12:
-               (ssi + k) * n_sc + rb_start * 12 + rb_size * 12]
-            .transpose(1, 2) for k in range(nsym)], dim=1)  # (S, nsym, RE, Nr)
-        res = ce_batch.comp_data_batch(
-            res, ssi, scs, est["to_avg"],
-            est["fo"] if est["fo_applied"] else None, ce_config)
+        with profiling.span("rx.gather"):
+            # ---- data resource copy + TO/FO compensation
+            res = torch.stack([
+                fd[:, :, (ssi + k) * n_sc + rb_start * 12:
+                   (ssi + k) * n_sc + rb_start * 12 + rb_size * 12]
+                .transpose(1, 2) for k in range(nsym)],
+                dim=1)                                  # (S, nsym, RE, Nr)
+            res = ce_batch.comp_data_batch(
+                res, ssi, scs, est["to_avg"],
+                est["fo"] if est["fo_applied"] else None, ce_config)
 
-        # ---- per-symbol data-RE selection (reference G order)
-        ys, hs, cvs = [], [], []
-        for k in range(nsym):
-            sym = ssi + k
-            if sym in symlist:
-                if ncdm == 2:
-                    continue
-                didx = dmrs_data_idx
+            # ---- per-symbol data-RE selection (reference G order)
+            ys, hs, cvs = [], [], []
+            for k in range(nsym):
+                sym = ssi + k
+                if sym in symlist:
+                    if ncdm == 2:
+                        continue
+                    didx = dmrs_data_idx
+                else:
+                    didx = np.arange(rb_size * 12)
+                di = torch.as_tensor(didx, device=dev)
+                ys.append(res[:, k, di, :])
+                hs.append(H[:, sym, di, :, :nl])
+                cvs.append(cov[:, sym, di // 12, :, :])
+            y = torch.cat(ys, dim=1)                        # (S, NRE, Nr)
+            h = torch.cat(hs, dim=1)
+            cv = torch.cat(cvs, dim=1)
+
+        # ---- equalization, demodulation, descrambling
+        with profiling.span("rx.equalize"):
+            n_re = y.shape[1]
+            y, h = y.reshape(s * n_re, nr), h.reshape(s * n_re, nr, nl)
+            cv = cv.reshape(s * n_re, nr, nr)
+            if transform_precode:
+                # de-precode each symbol's Msc block; the LLRs take the
+                # noise variance from before the IDFT, as the JAX core does
+                fn_eq = zf if algo.startswith("ZF") else mmse
+                s_est, nv = fn_eq(y, h, cv, irc=algo.endswith("IRC"))
+                m_sc = rb_size * 12
+                yi = torch.fft.ifft(s_est.reshape(s, n_re // m_sc, m_sc),
+                                    dim=-1) * math.sqrt(m_sc)
+                _, llr = demodulate(yi.reshape(-1), modtype,
+                                    nv.reshape(-1))
             else:
-                didx = np.arange(rb_size * 12)
-            di = torch.as_tensor(didx, device=dev)
-            ys.append(res[:, k, di, :])
-            hs.append(H[:, sym, di, :, :nl])
-            cvs.append(cov[:, sym, di // 12, :, :])
-        y = torch.cat(ys, dim=1)                            # (S, NRE, Nr)
-        h = torch.cat(hs, dim=1)
-        cv = torch.cat(cvs, dim=1)
-        n_re = y.shape[1]
-        y, h = y.reshape(s * n_re, nr), h.reshape(s * n_re, nr, nl)
-        cv = cv.reshape(s * n_re, nr, nr)
-        if transform_precode:
-            # de-precode each symbol's Msc block; the LLRs take the noise
-            # variance from before the IDFT, as the JAX core does
-            fn_eq = zf if algo.startswith("ZF") else mmse
-            s_est, nv = fn_eq(y, h, cv, irc=algo.endswith("IRC"))
-            m_sc = rb_size * 12
-            yi = torch.fft.ifft(s_est.reshape(s, n_re // m_sc, m_sc),
-                                dim=-1) * math.sqrt(m_sc)
-            _, llr = demodulate(yi.reshape(-1), modtype, nv.reshape(-1))
-        else:
-            llr = equalize_and_demod_traced(y, h, cv, modtype, algo)
-        llr = llr.reshape(s, G) * scr_sign[None, :]
+                llr = equalize_and_demod_traced(y, h, cv, modtype, algo)
+            llr = llr.reshape(s, G) * scr_sign[None, :]
 
-        # ---- data/control demultiplex + UCI decode
-        uci = {}
-        if uci_plan is not None:
-            for name, pos, dec in uci_decs:
-                uci[name] = dec(llr[:, torch.as_tensor(pos, device=dev)])
-            llr = llr[:, torch.as_tensor(uci_plan["ulsch_pos"], device=dev)]
+        with profiling.span("rx.ratematch"):
+            # ---- data/control demultiplex + UCI decode
+            uci = {}
+            if uci_plan is not None:
+                for name, pos, dec in uci_decs:
+                    uci[name] = dec(llr[:, torch.as_tensor(pos, device=dev)])
+                llr = llr[:, torch.as_tensor(uci_plan["ulsch_pos"],
+                                             device=dev)]
 
-        # ---- de-rate-match (Er groups) -> (S, C, N)
-        grps = []
-        g_off = 0
-        for c0, c1, E in ldpc_ops.er_groups(er_list):
-            grp = llr[:, g_off: g_off + (c1 - c0) * E] \
-                .reshape(s * (c1 - c0), E)
-            mx = 10.0 * grp.abs().amax(dim=-1, keepdim=True)
-            rec = ldpc_ops.ldpc_raterecover(grp, info, rv, qm, Ncb=ncb,
-                                            max_llr=mx)
-            grps.append(rec.reshape(s, c1 - c0, info.N))
-            g_off += (c1 - c0) * E
-        llr_dns = torch.cat(grps, dim=1)                    # (S, C, N)
+            # ---- de-rate-match (Er groups) -> (S, C, N)
+            grps = []
+            g_off = 0
+            for c0, c1, E in ldpc_ops.er_groups(er_list):
+                grp = llr[:, g_off: g_off + (c1 - c0) * E] \
+                    .reshape(s * (c1 - c0), E)
+                mx = 10.0 * grp.abs().amax(dim=-1, keepdim=True)
+                rec = ldpc_ops.ldpc_raterecover(grp, info, rv, qm, Ncb=ncb,
+                                                max_llr=mx)
+                grps.append(rec.reshape(s, c1 - c0, info.N))
+                g_off += (c1 - c0) * E
+            llr_dns = torch.cat(grps, dim=1)                # (S, C, N)
 
-        if llr_prev is not None:
-            both = (llr_dns != 0) & (llr_prev != 0)
-            comb = llr_dns + llr_prev
-            llr_dns = torch.where(both, comb / 2, comb).to(torch.float32)
+            if llr_prev is not None:
+                both = (llr_dns != 0) & (llr_prev != 0)
+                comb = llr_dns + llr_prev
+                llr_dns = torch.where(both, comb / 2, comb).to(torch.float32)
 
-        bits, _, _ = ldpc_ops.ldpc_decode(
-            llr_dns.reshape(s * info.C, info.N).contiguous(), info.Zc, bgn,
-            ldpc_cfg["L"], algo=ldpc_cfg["algo"], alpha=ldpc_cfg["alpha"],
-            beta=ldpc_cfg["beta"])
-        bits = bits.reshape(s, info.C, -1)
-        k_apo = info.cbz + info.L
-        cb_bits = bits[:, :, : info.cbz] if info.C > 1 \
-            else bits[:, :, : k_apo]
-        tbblkandcrc = cb_bits.reshape(s, -1)[:, :B]
-        err = crc_ops.crc_check(tbblkandcrc, tb_poly)
+        # ---- LDPC decode (its iterations counted where a profiler is
+        # open and the card's kernels decode) -> TB CRC
+        with profiling.span("rx.ldpc", items=s * info.C, unit="cw"):
+            iters = None
+            if profiling.active() is not None and dev.type == "cuda" \
+                    and ldpc_cfg["algo"] != "BP":
+                iters = torch.empty(s * info.C, dtype=torch.int32,
+                                    device=dev)
+            bits, _, _ = ldpc_ops.ldpc_decode(
+                llr_dns.reshape(s * info.C, info.N).contiguous(), info.Zc,
+                bgn, ldpc_cfg["L"], algo=ldpc_cfg["algo"],
+                alpha=ldpc_cfg["alpha"], beta=ldpc_cfg["beta"],
+                iters_out=iters)
+            if iters is not None:
+                profiling.count("ldpc_iterations", iters)
+            bits = bits.reshape(s, info.C, -1)
+            k_apo = info.cbz + info.L
+            cb_bits = bits[:, :, : info.cbz] if info.C > 1 \
+                else bits[:, :, : k_apo]
+            tbblkandcrc = cb_bits.reshape(s, -1)[:, :B]
+            err = crc_ops.crc_check(tbblkandcrc, tb_poly)
         outs = (err, tbblkandcrc[:, :A])
         if harq:
             outs += (llr_dns,)

@@ -22,8 +22,12 @@ def run_example(doc: str, config: dict, run, argv=None, ber=False,
     run_pusch_throughput) -> the results dict; pickles [dict(Nt, Nr,
     snr_db_list), results] (ber: the TB BLER 1 - pass rate per
     equalizer) to <out-dir>/<config['filename']>; profile_json: also
-    write the stage seconds and calls there. prof: the stage timer
-    (default a utils.profiling.StageProfiler on the device). The device
+    write there each stage's and span's calls, seconds, items, unit and
+    parent (the enclosing stage, null at the top), and under "counters"
+    the counters where there are any (ldpc_iterations: the LDPC kernels'
+    updates, summed over the codewords of the rx.ldpc span's items).
+    prof: the stage timer (default a utils.profiling.StageProfiler on the
+    device). The device
     is --device, else utils.platform.select_platform's (the card, or the
     host under PY5G_FORCE_CPU=1)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
@@ -50,9 +54,13 @@ def run_example(doc: str, config: dict, run, argv=None, ber=False,
     with open(out_dir / config["filename"], "wb") as f:
         pickle.dump([head, out], f)
     if profile_json:
+        stages = {k: dict(calls=s.calls, seconds=s.seconds, items=s.items,
+                          unit=s.unit, parent=s.parent)
+                  for k, s in prof.stats.items()}
+        if prof.counters:
+            stages["counters"] = dict(prof.counters)
         with open(out_dir / profile_json, "w") as f:
-            json.dump({k: dict(calls=s.calls, seconds=s.seconds)
-                       for k, s in prof.stats.items()}, f, indent=1)
+            json.dump(stages, f, indent=1)
     for a in algos:
         print(f"{a}: {'BLER' if ber else 'pass rates'} {out[a]}")
     return out

@@ -28,7 +28,7 @@ from python_5gtoolbox_tpu_torch.rx.channel_estimate import (
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          fft_size,
                                                          slots_per_frame)
-from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 from python_5gtoolbox_tpu_torch.waveform import dl as dl_wf
 from python_5gtoolbox_tpu_torch.waveform import rx as rx_wf
 
@@ -42,13 +42,14 @@ def slot_estimates(obj, slots, rx_fd, alloc, ce_config, prof=None):
     """The per-slot channel estimation of the reference's loop: for each
     allocated slot index in alloc, H_LS_est and NrChannelEstimation on
     the device -> [(rx_slot (Nr, 14*n_sc), slot, H, cov, est)], each
-    charged to prof's channel_est stage."""
-    prof = prof or StageProfiler(rx_fd.device)
+    charged to prof's channel_est stage (None: a span of the active
+    profiler, if any)."""
+    stage = span if prof is None else prof.stage
     slot_size = rx_fd.shape[1] // len(slots)
     out = []
     for i in alloc:
         rx_slot = rx_fd[:, i * slot_size: (i + 1) * slot_size]
-        with prof.stage("channel_est"):
+        with stage("channel_est"):
             h_ls, rs_info = obj.H_LS_est(rx_slot, slots[i])
             est = NrChannelEstimation(h_ls, rs_info, dict(ce_config))
             H, cov = est.channel_est()
@@ -59,12 +60,13 @@ def slot_estimates(obj, slots, rx_fd, alloc, ce_config, prof=None):
 def rx_slots(obj, estimates, algo, ldpc_config, prof=None, **rx_kw):
     """RX_process of every (rx_slot, slot, H, cov, est) in order, the rv
     cycle restarted (rvidx -1) -> the list of RX_process results, each
-    charged to prof's rx_process[<algo>] stage."""
-    prof = prof or StageProfiler(obj.device)
+    charged to prof's rx_process[<algo>] stage (None: a span of the
+    active profiler, if any)."""
+    stage = span if prof is None else prof.stage
     obj.rvidx = -1
     out = []
     for rx_slot, slot, H, cov, est in estimates:
-        with prof.stage(f"rx_process[{algo}]"):
+        with stage(f"rx_process[{algo}]"):
             out.append(obj.RX_process(rx_slot, slot, {"algo": algo}, H, cov,
                                       ldpc_config, est, **rx_kw))
     return out
@@ -163,11 +165,12 @@ def pdsch_before_ceq_processing(carrier_config, pdsch_config, chan_cfg,
     `seed`, the channel from a torch.Generator seeded with `seed`; state
     (interop.state_from_numpy) replaces those draws. prof: optional
     object whose stage(name) context manager wraps each stage
-    (tx_waveform, channel, rx_lowphy).
+    (tx_waveform, channel, rx_lowphy); None records nothing, or spans of
+    the active profiler where one is open.
     """
     dev = resolve_device(device)
     state = state or {}
-    prof = prof or StageProfiler(dev)
+    stage = span if prof is None else prof.stage
     scs, bw = carrier_config["scs"], carrier_config["BW"]
     nfft = fft_size(carrier_prb_size(scs, bw))
     fs_hz = carrier_config["samplerate_in_mhz"] * 1e6 \
@@ -180,14 +183,14 @@ def pdsch_before_ceq_processing(carrier_config, pdsch_config, chan_cfg,
         chan_cfg, pnoise_db, carrier_config["carrier_frequency_in_mhz"] * 1e6,
         fs_hz, scs, seed=seed, device=dev)
     dm = model.gen_Dm(n_slots)
-    with prof.stage("tx_waveform"):
+    with stage("tx_waveform"):
         _, _, dl, _ = dl_wf.gen_dl_waveform(
             waveform_config, carrier_config, nrPdsch_list=[nr_pdsch], Dm=dm,
             trblks=state.get("trblks"))
-    with prof.stage("channel"):
+    with stage("channel"):
         rx = model.filter(dl, taps=state.get("taps"),
                           noise=state.get("noise"))
-    with prof.stage("rx_lowphy"):
+    with stage("rx_lowphy"):
         _, rx_fd = rx_wf.waveform_rx_processing(rx, carrier_config, fs_hz)
     spf = slots_per_frame(scs)
     slots = [(waveform_config["startslot"] + i) % spf for i in range(n_slots)]
@@ -227,7 +230,7 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
     flags on the device; the flags of all points come back in one
     transfer at the end and print as '<label> snr=...' lines."""
     dev = resolve_device(device)
-    prof_ = prof or StageProfiler(dev)
+    stage = span if prof is None else prof.stage
     ldpc_config = dict(DEFAULT_LDPC_CONFIG, **(ldpc_config or {}))
     ce_cfg = _ce_config(ce_config, chan_cfg, carrier_config["scs"])
     period = ch_config["period_in_slot"]
@@ -246,9 +249,9 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
             continue
         oks = {}
         if not use_batch:
-            ests = slot_estimates(obj, slots, rx_fd, alloc, ce_cfg, prof_)
+            ests = slot_estimates(obj, slots, rx_fd, alloc, ce_cfg, prof)
             for algo in ceq_algo_list:
-                outs = rx_slots(obj, ests, algo, ldpc_config, prof_,
+                outs = rx_slots(obj, ests, algo, ldpc_config, prof,
                                 **(rx_kw or {}))
                 oks[algo] = torch.stack([o[0] for o in outs])
             pending.append((snr, len(alloc), oks))
@@ -260,7 +263,7 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
             full[torch.as_tensor(alloc, device=dev)]
         obj.rvidx = -1
         for algo in ceq_algo_list:
-            with prof_.stage(f"rx_batch[{algo}]"):
+            with stage(f"rx_batch[{algo}]"):
                 oks[algo], _ = obj.rx_process_batch(
                     rx_stack, [slots[i] for i in alloc], {"algo": algo},
                     ldpc_config, ce_cfg, fetch=False)[:2]

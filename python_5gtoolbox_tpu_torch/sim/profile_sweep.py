@@ -17,7 +17,10 @@ and prints one JSON line each:
     per-slot RX in place of the batched one: channel_est and
     rx_process[MMSE-IRC], charged slot by slot) on the StageProfiler's
     CUDA events: the span between each stage's two events on the stream,
-    with no synchronisation between stages;
+    with no synchronisation between stages; the spans nested in them
+    (tx.sch_encode, tx.symbols, tx.grid, low_phy, channel_filter, rx.ce,
+    rx.gather, rx.equalize, rx.ratematch, rx.ldpc) are listed beside
+    them, and "share" is of the top-level stages' sum;
   * "kernels": torch.profiler device time per kernel over one sweep
     without stage synchronisation, the sweep's wall time and the share
     of it the device was busy; with a path argument the Chrome trace of
@@ -125,7 +128,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     seconds = {k: s.seconds for k, s in timer.stats.items()}
-    total = sum(seconds.values())
+    total = sum(s.seconds for s in timer.stats.values() if s.parent is None)
     print(json.dumps(dict(
         phase="stages", rate_mhz=rate, small_alloc=small, pusch=pusch,
         testmodel=tm, per_slot=per_slot, wall_s=wall, seconds=seconds,

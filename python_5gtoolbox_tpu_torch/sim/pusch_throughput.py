@@ -21,7 +21,7 @@ from python_5gtoolbox_tpu_torch.models import channel as chan_mod
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH, uci_on
 from python_5gtoolbox_tpu_torch.rx.equalize import LINEAR_EQUALIZERS
 from python_5gtoolbox_tpu_torch.sim.pdsch_throughput import run_sweep
-from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 from python_5gtoolbox_tpu_torch.utils.numerology import (carrier_prb_size,
                                                          fft_size,
                                                          slots_per_frame)
@@ -88,11 +88,12 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
     `seed`, the channel from a torch.Generator seeded with `seed`; state
     (interop.state_from_numpy) replaces those draws. prof: optional
     object whose stage(name) context manager wraps each stage
-    (tx_waveform, channel, rx_lowphy).
+    (tx_waveform, channel, rx_lowphy); None records nothing, or spans of
+    the active profiler where one is open.
     """
     dev = resolve_device(device)
     state = state or {}
-    prof = prof or StageProfiler(dev)
+    stage = span if prof is None else prof.stage
     scs, bw = carrier_config["scs"], carrier_config["BW"]
     fs_hz = fft_size(carrier_prb_size(scs, bw)) * scs * 1000.0
     waveform_config = dict(numofslots=n_slots, startSFN=0, startslot=0,
@@ -102,14 +103,14 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
     model = chan_mod.NrChannelModel(
         chan_cfg, pnoise_db, carrier_config["carrier_frequency_in_mhz"] * 1e6,
         fs_hz, scs, seed=seed, device=dev)
-    with prof.stage("tx_waveform"):
+    with stage("tx_waveform"):
         _, _, ul = ul_wf.gen_ul_waveform(
             waveform_config, carrier_config, nrPusch_list=[nr_pusch],
             return_device=True, trblks=state.get("trblks"))
-    with prof.stage("channel"):
+    with stage("channel"):
         rx = model.filter(ul, taps=state.get("taps"),
                           noise=state.get("noise"))
-    with prof.stage("rx_lowphy"):
+    with stage("rx_lowphy"):
         _, rx_fd = rx_wf.waveform_rx_processing(rx, carrier_config, fs_hz)
     spf = slots_per_frame(scs)
     slots = [(waveform_config["startslot"] + i) % spf for i in range(n_slots)]

@@ -37,7 +37,7 @@ from python_5gtoolbox_tpu_torch.phy.pdcch import NrSearchSpace, Pdcch
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch
 from python_5gtoolbox_tpu_torch.phy.ssb import NrSSB
 from python_5gtoolbox_tpu_torch.utils import numerology as num
-from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 
 
 def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
@@ -56,10 +56,11 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     composed branch works on the first PDSCH's or SSB's device; device
     (None -> cuda) is where it works when there is neither (CSI-RS and
     PDCCH carry no device). prof: optional stage timer (an object whose
-    stage(name) is a context manager; default a utils.profiling
-    StageProfiler on the channels' device) charged with the composed branch's
-    slot_grids (every channel's process), low_phy (OFDM and slot phase)
-    and channel_filter stages.
+    stage(name) is a context manager; None: spans of the active
+    utils.profiling profiler, if one is open) charged with the composed
+    branch's slot_grids (every channel's process), low_phy (OFDM and slot
+    phase; on the single-PDSCH branch without Dm, the fused
+    filters.tx_lowphy_duc) and channel_filter stages.
     """
     n_slots = waveform_config["numofslots"]
     start_slot = waveform_config["startslot"]
@@ -73,6 +74,7 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
     slots = [(start_slot + idx) % spf for idx in range(n_slots)]
     no_dm = Dm is None or not np.any(np.asarray(Dm))
 
+    stage = span if prof is None else prof.stage
     single = (len(nrPdsch_list) == 1 and not nrSSB_list and not nrCSIRS_list
               and not nrPDCCH_list and nrPdsch_list[0].tx_batch_supported())
     if single:
@@ -80,34 +82,34 @@ def gen_dl_waveform(waveform_config: dict, carrier_config: dict,
         if no_dm:
             roll = nant // 2 if nant > 1 else 0
             fd = pdsch.tx_grid_batch(slots, roll_ant=roll, trblks=trblks)
-            dl = filters.tx_lowphy_duc(fd.transpose(0, 1), scs, bw, fc_hz,
-                                       out_rate_hz, slot_phase=True,
-                                       start_slot=start_slot)
+            with stage("low_phy"):
+                dl = filters.tx_lowphy_duc(fd.transpose(0, 1), scs, bw,
+                                           fc_hz, out_rate_hz,
+                                           slot_phase=True,
+                                           start_slot=start_slot)
             if roll:
                 fd = torch.roll(fd, roll, dims=1)   # fd is the unrolled grid
             return (fd.transpose(0, 1).reshape(nant, -1), None, dl,
                     nfft * scs * 1000)
         fd = pdsch.tx_grid_batch(slots, trblks=trblks)
-        prof = prof or StageProfiler(fd.device)
     else:
         if trblks is not None:
             raise ValueError("trblks= needs a single batch-capable PDSCH "
                              "and no other channel")
         device = resolve_device(next(
             (ch.device for ch in (*nrPdsch_list, *nrSSB_list)), device))
-        prof = prof or StageProfiler(device)
-        with prof.stage("slot_grids"):
+        with stage("slot_grids"):
             fd = _per_slot_grids(waveform_config, nant, 12 * prb, spf,
                                  nrSSB_list, nrPdsch_list, nrCSIRS_list,
                                  nrPDCCH_list, device)
-    with prof.stage("low_phy"):
+    with stage("low_phy"):
         dm = None if no_dm else torch.as_tensor(np.asarray(Dm),
                                                 device=fd.device)
         td = ofdm.tx_low_phy(fd, scs, bw, fc_hz, dm=dm)
         ph = ofdm._slot_phase_const(scs, fc_hz, n_slots, start_slot)
         td = td * torch.as_tensor(ph, device=fd.device)[:, None, None]
         td_flat = td.transpose(0, 1).reshape(nant, -1)
-    with prof.stage("channel_filter"):
+    with stage("channel_filter"):
         dl = filters.tx_channel_filter(td_flat, scs, bw, out_rate_hz)
     return (fd.transpose(0, 1).reshape(nant, -1), td_flat, dl,
             nfft * scs * 1000)

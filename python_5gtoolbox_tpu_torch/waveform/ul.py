@@ -40,7 +40,7 @@ from python_5gtoolbox_tpu_torch.phy.pucch import (
 from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH
 from python_5gtoolbox_tpu_torch.phy.srs import NrSRS
 from python_5gtoolbox_tpu_torch.utils import numerology as num
-from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+from python_5gtoolbox_tpu_torch.utils.profiling import span
 
 
 def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
@@ -55,11 +55,12 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
     (batched branch with return_device=True), ul at
     waveform_config["samplerate_in_mhz"]. trblks (Sa, TBSize), one row
     per allocated slot, replaces the drawn blocks (a single PUSCH only).
-    prof: optional stage timer (default a utils.profiling.StageProfiler
-    on the channels' device; an object whose stage(name) is a context
-    manager) charged with the composed branch's slot_grids (every
-    channel's process), low_phy (OFDM and slot phase) and channel_filter
-    stages, as gen_dl_waveform's."""
+    prof: optional stage timer (an object whose stage(name) is a context
+    manager; None: spans of the active utils.profiling profiler, if one
+    is open) charged with the composed branch's slot_grids (every
+    channel's process), low_phy (OFDM and slot phase; on the batched
+    branch with return_device, the fused filters.tx_lowphy_duc) and
+    channel_filter stages, as gen_dl_waveform's."""
     pucch_lists = (nrPucchFormat0_list, nrPucchFormat1_list,
                    nrPucchFormat2_list, nrPucchFormat3_list,
                    nrPucchFormat4_list)
@@ -72,6 +73,7 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
     spf = num.slots_per_frame(scs)
     slots = [(start_slot + idx) % spf for idx in range(n_slots)]
 
+    stage = span if prof is None else prof.stage
     single = (len(nrPusch_list) == 1 and not nrSrs_list
               and not any(pucch_lists)
               and nrPusch_list[0].tx_batch_supported())
@@ -80,14 +82,15 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
         if return_device:
             roll = nant // 2 if nant > 1 else 0
             fd = pusch.tx_grid_batch(slots, roll_ant=roll, trblks=trblks)
-            ul = filters.tx_lowphy_duc(fd.transpose(0, 1), scs, bw, fc_hz,
-                                       out_rate_hz, slot_phase=True,
-                                       start_slot=start_slot)
+            with stage("low_phy"):
+                ul = filters.tx_lowphy_duc(fd.transpose(0, 1), scs, bw,
+                                           fc_hz, out_rate_hz,
+                                           slot_phase=True,
+                                           start_slot=start_slot)
             if roll:
                 fd = torch.roll(fd, roll, dims=1)  # fd is the unrolled grid
             return fd.transpose(0, 1).reshape(nant, -1), None, ul
         fd = pusch.tx_grid_batch(slots, trblks=trblks)
-        prof = prof or StageProfiler(fd.device)
     else:
         if trblks is not None and len(nrPusch_list) != 1:
             raise ValueError("trblks= needs a single PUSCH")
@@ -95,18 +98,17 @@ def gen_ul_waveform(waveform_config: dict, carrier_config: dict,
         device = resolve_device(next(
             (ch.device for ch in (*nrPusch_list, *pucchs, *nrSrs_list)),
             None))
-        prof = prof or StageProfiler(device)
-        with prof.stage("slot_grids"):
+        with stage("slot_grids"):
             fd = _per_slot_grids(waveform_config, nant,
                                  12 * num.carrier_prb_size(scs, bw), spf,
                                  nrPusch_list, pucchs, nrSrs_list, device,
                                  trblks)
-    with prof.stage("low_phy"):
+    with stage("low_phy"):
         td = ofdm.tx_low_phy(fd, scs, bw, fc_hz)
         ph = ofdm._slot_phase_const(scs, fc_hz, n_slots, start_slot)
         td = td * torch.as_tensor(ph, device=fd.device)[:, None, None]
         td_flat = td.transpose(0, 1).reshape(nant, -1)
-    with prof.stage("channel_filter"):
+    with stage("channel_filter"):
         ul = filters.tx_channel_filter(td_flat, scs, bw, out_rate_hz)
     return fd.transpose(0, 1).reshape(nant, -1), td_flat, ul
 

@@ -1055,6 +1055,53 @@ def test_stage_profiler_times_stages_with_events(cuda_device):
     assert prof.check_dispatch_routing() == []
 
 
+@pytest.mark.parametrize("small_alloc", [False, True],
+                         ids=["ldpc_minsum", "ldpc_minsum_packed"])
+def test_ldpc_iterations_counter_is_the_sum_of_iters_out(cuda_device,
+                                                         monkeypatch,
+                                                         small_alloc):
+    """Under a StageProfiler the batched RX hands iters_out to the
+    kernel and counts its sum as ldpc_iterations: the same total as a
+    direct ldpc_minsum call on the LLRs each decode got. rx.ldpc's items
+    are the codewords. Without a profiler no iters_out is passed."""
+    from python_5gtoolbox_tpu_torch.ops import ldpc as ldpc_ops
+    from python_5gtoolbox_tpu_torch.sim import pdsch_throughput as sim
+    from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+
+    seen = []
+    real = ldpc_ops.ldpc_decode
+
+    def spy(llr, zc, bgn, n_iter, **kw):
+        seen.append((llr.clone(), zc, bgn, n_iter, kw))
+        return real(llr, zc, bgn, n_iter, **kw)
+    monkeypatch.setattr(ldpc_ops, "ldpc_decode", spy)
+    carrier, pdsch, chan, ce, ldpc = (
+        sim.small_alloc_link_level_config() if small_alloc
+        else sim.bench_link_level_config())
+    kw = dict(n_slots=4, ce_config=ce, ldpc_config=ldpc, seed=5,
+              device=cuda_device)
+    snrs = [-12.0, 25.0] if small_alloc else [-2.0, 25.0]
+    sim.run_pdsch_throughput(carrier, pdsch, chan, snrs, ["MMSE-IRC"], **kw)
+    assert [s[4]["iters_out"] for s in seen] == [None, None]
+    seen.clear()
+    prof = StageProfiler(cuda_device)
+    sim.run_pdsch_throughput(carrier, pdsch, chan, snrs, ["MMSE-IRC"],
+                             prof=prof, **kw)
+    want, n_cw = 0, 0
+    for llr, zc, bgn, n_iter, dkw in seen:
+        assert dkw["iters_out"].shape == (llr.shape[0],)
+        it = torch.zeros(llr.shape[0], dtype=torch.int32, device=cuda_device)
+        ldpc_dec.ldpc_minsum(llr, zc, bgn, n_iter, dkw["alpha"], dkw["beta"],
+                             iters_out=it)
+        assert torch.equal(it, dkw["iters_out"])
+        want += int(it.sum())
+        n_cw += llr.shape[0]
+    got = prof.counters["ldpc_iterations"]
+    assert got == want and 0 < got <= n_cw * ldpc["L"]
+    assert prof.stats["rx.ldpc"].items == n_cw
+    assert "ldpc_iterations" in prof.report()
+
+
 def test_timeshard_two_ranks_on_card(cuda_device, tmp_path):
     """Two gloo ranks sharing cuda:0 (tests/torch_parallel_ranks.py,
     run_card): the time-sharded TX and RX filters through banded_fir,

@@ -294,3 +294,17 @@ def test_profile_sweep_names_every_kernel():
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
             src.read_text()))
     assert {k.split("::")[-1] for k in profile_sweep.PORT_KERNELS} == names
+
+
+@pytest.mark.parametrize("algo", ["min-sum", "BP"])
+def test_ldpc_decode_plain_path_refuses_iters_out(algo):
+    """ldpc_decode hands iters_out to the card's kernels only: the plain
+    decoder (a CPU tensor, or BP anywhere) counts no iterations and
+    refuses it; without it the same call decodes."""
+    zc = 16
+    llr = torch.full((2, 50 * zc), 4.0)
+    iters = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="iters_out"):
+        dec.ldpc_decode(llr, zc, 2, 4, algo=algo, iters_out=iters)
+    bits, ok, _ = dec.ldpc_decode(llr, zc, 2, 4, algo=algo)
+    assert bool(ok.all()) and not bits.any()
