@@ -108,6 +108,7 @@ from python_5gtoolbox_tpu_torch.ops import filters, ofdm, polar  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import decode as ldpc_dec  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc import sch_plan  # noqa: E402
 from python_5gtoolbox_tpu_torch.ops.ldpc.encode import ldpc_encode  # noqa: E402
+from python_5gtoolbox_tpu_torch.ops.modulation import QM_TABLE  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy import csirs_report  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.csirs import NrCSIRS  # noqa: E402
 from python_5gtoolbox_tpu_torch.phy.pdsch import Pdsch  # noqa: E402
@@ -2002,7 +2003,8 @@ def phase_pdsch_throughput_example() -> dict:
     ML2-IRC-soft, batched): wall s and the pass-rate curves. Then 4 slots
     at 30 dB for each equalizer: per slot (the RX follows the rv cycle
     [0, 2, 3, 1] of the configuration) and batched with rv [0], every TB
-    exact. Returns the example's launches."""
+    exact. The batched sweep makes one ml2_maxlog launch a point.
+    Returns the example's launches."""
     cfg = pdsch_ex.example_config()
     with tempfile.TemporaryDirectory() as tmp:
         pdsch_ex.main(["--out-dir", tmp],
@@ -2016,9 +2018,11 @@ def phase_pdsch_throughput_example() -> dict:
         wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n_pts = len(cfg["snr_db_list"])
+    n_ml2 = sum(a.startswith("ML2") for a in cfg["ceq_algo_list"])
     if launches["banded_fir"] != 2 * n_pts or launches[
             "ldpc_minsum_flooded"] + launches["ldpc_minsum_packed"] \
-            != n_pts * len(cfg["ceq_algo_list"]):
+            != n_pts * len(cfg["ceq_algo_list"]) \
+            or launches["ml2_maxlog"] != n_pts * n_ml2:
         raise AssertionError(f"pdsch example launches {launches}")
     carrier, pdsch, chan = cfg["carrier"], cfg["channel"], cfg["chan_cfg"]
     ldpc = dict(sim.DEFAULT_LDPC_CONFIG)
@@ -2239,14 +2243,58 @@ def phase_harq() -> dict:
     return launches
 
 
-def phase_ml_equalizers() -> None:
+def _ml2_search_row(y, h, s2, modtype: str) -> dict:
+    """csrc/ml2_maxlog.cu against ml2_maxlog_plain on whitened (y, h,
+    sigma2): device ms of each (the kernel back to back, the plain search
+    once, warm), the kernel's bound, LLR error and differing best
+    candidates (ties within rounding)."""
+    n, nr, nl = h.shape
+    n_cand = 2 ** (QM_TABLE[modtype] * nl)
+    before = kernels.LAUNCHES["ml2_maxlog"]
+    got = teq.ml2_maxlog(y, h, s2, modtype)
+    torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["ml2_maxlog"] - before
+    kernel_ms = device_ms(lambda: teq.ml2_maxlog(y, h, s2, modtype))
+    teq.ml2_maxlog_plain(y[:8], h[:8], s2[:8], modtype)               # warm
+    ref, plain_ms = _event_ms(lambda: teq.ml2_maxlog_plain(y, h, s2,
+                                                           modtype))
+    err = float((got[2] - ref[2]).abs().max() / ref[2].abs().max())
+    # where the best candidates differ, the kernel's pick must score the
+    # plain minimum to a few ulps in the plain arithmetic (a tie)
+    differ = torch.nonzero(got[0] != ref[0])[:, 0]
+    cand = torch.as_tensor(teq._candidates(modtype, nl)[1], device=DEV)
+    lv = teq._distances(y[differ], h[differ], cand) / s2[differ, None]
+    pick = lv.gather(1, got[0][differ, None])[:, 0]
+    ties_ok = bool(((pick - ref[1][differ]).abs()
+                    <= 1e-5 * ref[1][differ].abs()).all())
+    # per candidate and RX antenna 2 subtractions and 2 FMAs, then a row
+    # and a column minimum: (4 Nr + 2) FP32 instructions at half the FP32
+    # FLOP rate (an FMA counts 2 FLOP); y, h, sigma2 read, best, min_lv and
+    # the LLRs written once
+    n_instr = n * n_cand * (4 * nr + 2)
+    n_bytes = n * (8 * nr + 8 * nr * nl + 4 + 8 + 4 + 4 * nl
+                   * QM_TABLE[modtype])
+    bound, by = bound_ms(n_bytes, 2 * n_instr)
+    if launched != 1 or err > 1e-4 or not ties_ok:
+        raise AssertionError(f"ml2_maxlog {modtype}: {launched} launches, "
+                             f"LLR error {err}, {len(differ)} best differ")
+    return dict(modtype=modtype, res=n, candidates=n_cand, nr=nr,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                plain_pieces=len(teq._pieces(n, n_cand, nr)), bound_ms=bound,
+                bound_by=by, llr_rel_err=err, best_differ=len(differ))
+
+
+def phase_ml_equalizers() -> dict:
     """Every ML algorithm on the inputs of the equalize_ml_cases and
     equalize_ml2_cases goldens (tests/golden/), card against CPU: hard
     bits equal, LLRs within 1e-3 of their scale. Then ML2-IRC-soft at
     256QAM with 2 layers and Nr 4 on the data REs of one bench slot:
-    device ms, RE pieces under the 2^29-byte budget, peak memory, the
-    eigh (cuSOLVER) ms of its whitening; card == CPU on its first 64
-    REs."""
+    device ms, peak memory, the eigh (cuSOLVER) ms of its whitening; card
+    == CPU on its first 64 REs. Then ML2's search alone on that slot's
+    whitened REs repeated to the bench cell's shapes (a full-width slot,
+    36,036 REs, at its 64QAM and at 256QAM; a 20-slot point, 720,720 REs,
+    at 64QAM): csrc/ml2_maxlog.cu beside its bound and the plain search.
+    Returns the kernel table's row (64QAM, one slot)."""
     root = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
     worst, n_cases = 0.0, 0
     for name in ("equalize_ml_cases", "equalize_ml2_cases"):
@@ -2266,18 +2314,7 @@ def phase_ml_equalizers() -> None:
                     raise AssertionError(f"{name} case {i} {algo}: hard "
                                          f"bits or LLRs {err} card != CPU")
                 worst, n_cases = max(worst, err), n_cases + 1
-    carrier, pdsch, chan, ce, ldpc = sim.bench_link_level_config()
-    obj, slots, rx_fd = sim.pdsch_before_ceq_processing(
-        carrier, pdsch, chan, -20.0, 1, seed=3, device=DEV)
-    ce_cfg = sim._ce_config(ce, chan, carrier["scs"])
-    rx_slot, _, H, cov, est = sim.slot_estimates(obj, slots, rx_fd, [0],
-                                                 ce_cfg)[0]
-    _, sym_idx, re_idx, _ = obj._slot_rx_plan()
-    ssi = pdsch["StartSymbolIndex"]
-    res = est.process_pdsch_data(copy_rx_pdsch_resource(rx_slot, obj.cfg)[0],
-                                 ssi)
-    y, h = res[sym_idx, re_idx], H[sym_idx + ssi, re_idx]
-    cv = cov[sym_idx + ssi, torch.div(re_idx, 12, rounding_mode="floor")]
+    y, h, cv = _bench_ml_slot()
     n_re = y.shape[0]
     teq.ml2(y[:8], h[:8], cv[:8], "256qam", irc=True)               # warm
     torch.cuda.synchronize()
@@ -2291,15 +2328,28 @@ def phase_ml_equalizers() -> None:
     err = float((out[3][:64].cpu() - cpu[3]).abs().max()
                 / cpu[3].abs().max())
     hard_equal = torch.equal(out[2][:64].cpu(), cpu[2])
+    yw, hw, cw = teq._whitened(y, h, cv, True)
+    s2 = teq._sigma2(cw)
+    # the bench cell's shapes, the slot's whitened REs repeated: one
+    # full-width slot (36,036 data REs) and one 20-slot point (720,720)
+    search = []
+    for n, mods in ((36036, ("64qam", "256qam")), (720720, ("64qam",))):
+        idx = torch.arange(n, device=DEV) % n_re
+        search += [_ml2_search_row(yw[idx], hw[idx], s2[idx], mod)
+                   for mod in mods]
     emit("ml_equalizers", golden_cases=n_cases,
          worst_llr_rel_err_card_vs_cpu=worst,
          ml2_256qam=dict(res_per_slot=n_re, candidates=256 ** 2, nr=4,
-                         pieces=len(teq._pieces(n_re, 256 ** 2, 4)),
                          device_ms=ms, peak_bytes=peak, eigh_ms=eigh_ms,
                          first64_hard_equal=hard_equal,
-                         first64_llr_rel_err=err))
+                         first64_llr_rel_err=err),
+         ml2_search=search)
     if not hard_equal or err > 1e-3:
         raise AssertionError(f"ML2 256QAM card != CPU: {err}")
+    row = search[0]
+    return dict(max_abs_err=row["llr_rel_err"], kernel_ms=row["kernel_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=None)
 
 
 def _dct_config():
@@ -2459,7 +2509,10 @@ def _par_rank(rank: int, world: int, port: int, queue) -> None:
     got, ms = sharded(lambda: tp_ml2(y, h, cv, "256qam", tp, irc=True))
     err = ref_ms = None
     if rank == 0:
-        ref, ref_ms = single(lambda: teq.ml2(y, h, cv, "256qam", irc=True))
+        # tp_ml2 splits the plain search (the kernel's own check is
+        # phase_ml_equalizers)
+        ref, ref_ms = single(lambda: teq.ml2_plain(y, h, cv, "256qam",
+                                                   irc=True))
         err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1)
                   for a, b in zip(got, ref))
         if not torch.equal(got[2], ref[2]) or not err <= 1e-5:
@@ -2603,7 +2656,9 @@ def main() -> None:
                            phase_pusch_throughput_example()),
                        pusch_uci_per_slot=phase_pusch_uci_per_slot(),
                        harq=phase_harq())
-    phase_ml_equalizers()
+    rows["ml2_maxlog"] = phase_ml_equalizers()
+    launches["ml2_maxlog"] = rx_launches["pdsch_throughput_example"][
+        "ml2_maxlog"]
     rx_launches["ce_dct"] = phase_ce_dct()
     par_launches = dict(parallel_245=phase_parallel_245())
     for name in ("ldpc_minsum_flooded_fast", "ldpc_minsum_layered",
@@ -2618,11 +2673,12 @@ def main() -> None:
     # in their gen_dl_waveform calls (summed: 2 Dm waveforms, 3 carriers
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
-    # decoder bench through ldpc_decode; ul_launches, dl_launches,
-    # rx_launches, ulc_launches and par_launches: the uplink phases, the
-    # multi-channel DL phases, the receiver-breadth phases, the UL-control /
-    # PRACH phases and the parallel phase that launched the kernel, with
-    # their counts
+    # decoder bench through ldpc_decode, ml2_maxlog in the PDSCH
+    # throughput example's batched sweep (one a point); ul_launches,
+    # dl_launches, rx_launches, ulc_launches and par_launches: the uplink
+    # phases, the multi-channel DL phases, the receiver-breadth phases, the
+    # UL-control / PRACH phases and the parallel phase that launched the
+    # kernel, with their counts
     for name, src, replaces in [
             ("banded_fir", "banded_fir.cu", "pallas_filters.py:93"),
             ("ldpc_minsum_flooded", "ldpc_minsum.cu",
@@ -2638,10 +2694,13 @@ def main() -> None:
             ("fir_up2_fused", "fir_up2_fused.cu", "pallas_filters.py:223"),
             ("fir_up2_fused_symbols", "fir_up2_fused_symbols.cu",
              "pallas_filters.py:368"),
-            ("duc_from_spec", "duc_from_spec.cu", "pallas_filters.py:581")]:
+            ("duc_from_spec", "duc_from_spec.cu", "pallas_filters.py:581"),
+            # none: the JAX package's ml2 is plain jnp
+            ("ml2_maxlog", "ml2_maxlog.cu", None)]:
         row = rows[name]
         table.append(dict(name=name, route="cuda", source=csrc + src,
-                          replaces=tpu + replaces, launches=launches[name],
+                          replaces=replaces and tpu + replaces,
+                          launches=launches[name],
                           max_abs_err=row["max_abs_err"],
                           ms=row["kernel_ms"], plain_ms=row["plain_ms"],
                           bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -40,6 +40,8 @@ _SOURCES = {
     "fir_up2_fused": [],
     "fir_up2_fused_symbols": [],
     "duc_from_spec": [],
+    # rounding fixed by intrinsics (the best candidate's row is recomputed)
+    "ml2_maxlog": [],
 }
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -53,13 +55,14 @@ _SIGNATURES = {
     "fir_up2_fused_symbols": ("fir_up2_fused_symbols",
                               [_P] * 4 + [_I] * 11 + [_P]),
     "duc_from_spec": ("duc_from_spec", [_P] * 8 + [_I] * 9 + [_P]),
+    "ml2_maxlog": ("ml2_maxlog", [_P] * 7 + [_I] * 4 + [_P]),
 }
 
 LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0,
             "ldpc_minsum_flooded_fast": 0, "ldpc_minsum_layered": 0,
             "ldpc_minsum_layered_fast": 0, "ldpc_minsum_packed": 0,
             "fir_up2_fused": 0, "fir_up2_fused_symbols": 0,
-            "duc_from_spec": 0}
+            "duc_from_spec": 0, "ml2_maxlog": 0}
 # the H100 SXM the kernels are planned for: streaming multiprocessors, and
 # the dynamic shared memory a block may opt in to on sm_90 (227 KB)
 H100_SMS = 132

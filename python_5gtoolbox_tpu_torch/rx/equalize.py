@@ -6,9 +6,11 @@ nr_channel_eq.py). Every RE is one batch element: (N, Nr, NL) channels,
 closed-form batched 2x2 inverses and a 2x2-block Schur inverse for 4x4;
 IRC whitening by the eigendecomposition of the inverse covariance; ML as
 one (N, C) distance tensor over the C = q^NL candidate vectors with a
-first-minimum argmin. The (N, C, Nr) candidate tensor of ML and ML2 is
-split along the RE axis so that each piece stays under ML_BYTE_BUDGET
-bytes (the split does not change any result). The reference's
+first-minimum argmin. The (N, C, Nr) candidate tensor of ML and of
+ML2's plain search is split along the RE axis so that each piece stays
+under ML_BYTE_BUDGET bytes (the split does not change any result). ML2's
+search on a CUDA tensor is the hand-written kernel csrc/ml2_maxlog.cu
+(ml2_maxlog), which keeps the candidates on the chip. The reference's
 conditional rank-deficiency fix becomes an unconditional tiny diagonal
 load.
 """
@@ -19,9 +21,10 @@ import functools
 import numpy as np
 import torch
 
-from python_5gtoolbox_tpu_torch import resolve_device
+from python_5gtoolbox_tpu_torch import kernels, resolve_device
 from python_5gtoolbox_tpu_torch.ops.modulation import QM_TABLE, modulate_np
 from python_5gtoolbox_tpu_torch.rx.demod import demodulate
+from python_5gtoolbox_tpu_torch.utils import profiling
 
 _EPS = 1e-6
 LINEAR_EQUALIZERS = ("ZF", "ZF-IRC", "MMSE", "MMSE-IRC")
@@ -30,6 +33,10 @@ ML_EQUALIZERS = ("ML-soft", "ML-hard", "ML-IRC-soft", "ML-IRC-hard",
                  "opt-rank2-ML", "opt-rank2-ML-IRC")
 # bytes of one piece of the (N, C, Nr) complex64 candidate tensor
 ML_BYTE_BUDGET = 2 ** 29
+# what csrc/ml2_maxlog.cu takes: layers, RX antennas, bits per symbol
+ML2_KERNEL_LAYERS = (1, 2)
+ML2_KERNEL_MAX_NR = 8
+ML2_KERNEL_QM = (1, 2, 4, 6, 8)
 
 
 def _h(m):
@@ -266,35 +273,131 @@ def ml(y, h, cov, modtype: str, irc: bool = False, soft: bool = True):
                                            lay_idx, hard, nv)
 
 
-def ml2(y, h, cov, modtype: str, irc: bool = False, soft: bool = True):
-    """Exact max-log ML (reference ML2.py:47-163), batched over REs: the
-    per-bit LLR is the minimum metric over every candidate vector with
-    that bit 1 minus the minimum with that bit 0. RE pieces of at most
-    ML_BYTE_BUDGET bytes."""
-    y, h, cov = _whitened(y, h, cov, irc)
+@functools.lru_cache(maxsize=None)
+def _device_tables(modtype: str, nl: int, device: torch.device):
+    """(syms (q,) complex64, cand (C, NL) complex64, cand_bits (C,
+    NL*Qm) int8) on device, copied there once."""
+    syms, _ = constellation(modtype)
+    _, cand, cand_bits = _candidates(modtype, nl)
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (syms, cand, cand_bits))
+
+
+def ml2_on_kernel(h: torch.Tensor, modtype: str) -> bool:
+    """Whether ml2 searches with csrc/ml2_maxlog.cu: a CUDA tensor with
+    NL <= 2, Nr <= 8 and at most 8 bits a symbol. Anything else (a CPU
+    tensor, three or more layers) takes ml2_maxlog_plain."""
+    _, nr, nl = h.shape
+    return (h.is_cuda and nl in ML2_KERNEL_LAYERS
+            and nr <= ML2_KERNEL_MAX_NR
+            and QM_TABLE[modtype.lower()] in ML2_KERNEL_QM)
+
+
+def ml2_maxlog_plain(y, h, sigma2, modtype: str, soft: bool = True):
+    """Exact max-log ML2 search in plain PyTorch on whitened y (N, Nr), h
+    (N, Nr, NL) and sigma2 (N,) -> (best (N,) int64, the first candidate
+    of least metric; min_lv (N,); llr (N, NL*Qm), None without soft). The
+    metrics lv = |y - h c|^2 / sigma2 of every candidate vector c are
+    materialised in RE pieces of at most ML_BYTE_BUDGET bytes; the per-bit
+    LLR is the least lv with that bit 1 minus the least with it 0."""
     n, nr, nl = h.shape
-    cand_idx, cand, cand_bits = _candidates(modtype, nl)
+    _, cand, cand_bits = _candidates(modtype, nl)
     cand_t = _t(cand, y)
-    bits_t = _t(cand_bits, y)
     is1 = _t(cand_bits == 1, y)
-    sigma2 = _sigma2(cov)
     outs = []
     for a, b in _pieces(n, len(cand), nr):
         lv = _distances(y[a:b], h[a:b], cand_t) / sigma2[a:b, None]
         best = torch.argmin(lv, dim=-1)
         min_lv = torch.gather(lv, 1, best[:, None])[:, 0]
-        hard = bits_t[best]
+        llr = None
         if soft:
             inf = torch.full_like(lv, float("inf"))
             llr = torch.stack(
                 [torch.where(is1[:, i], lv, inf).amin(dim=1)
                  - torch.where(is1[:, i], inf, lv).amin(dim=1)
                  for i in range(cand_bits.shape[1])], dim=-1)
-        else:
-            llr = _hard_llr(hard)
-        outs.append((cand_t[best], min_lv[:, None].expand(b - a, nl), hard,
-                     llr))
-    return tuple(torch.cat(o) for o in zip(*outs))
+        outs.append((best, min_lv, llr))
+    best, min_lv, llr = zip(*outs)
+    return (torch.cat(best), torch.cat(min_lv),
+            torch.cat(llr) if soft else None)
+
+
+def ml2_maxlog(y, h, sigma2, modtype: str):
+    """ml2_maxlog_plain's search (soft) on the card, one launch of the
+    hand-written kernel csrc/ml2_maxlog.cu over all N REs: y (N, Nr), h
+    (N, Nr, NL) complex64 and sigma2 (N,) float32, contiguous CUDA
+    tensors -> (best (N,) int64, min_lv (N,) float32, llr (N, NL*Qm)
+    float32). Nothing of the C = q^NL candidates reaches device memory.
+    Replaces no TPU kernel (the JAX package's ml2 is plain jnp)."""
+    n, nr, nl = h.shape
+    qm = QM_TABLE[modtype.lower()]
+    dev = y.device
+    if dev.type != "cuda" or h.device != dev or sigma2.device != dev:
+        raise ValueError("ml2_maxlog: y, h and sigma2 must be on one CUDA "
+                         "device")
+    if (y.dtype, h.dtype, sigma2.dtype) != (torch.complex64, torch.complex64,
+                                            torch.float32):
+        raise ValueError("ml2_maxlog: y and h must be complex64, sigma2 "
+                         "float32")
+    if tuple(y.shape) != (n, nr) or tuple(sigma2.shape) != (n,):
+        raise ValueError("ml2_maxlog: y must be (N, Nr) and sigma2 (N,) for "
+                         "h (N, Nr, NL)")
+    if not (y.is_contiguous() and h.is_contiguous()
+            and sigma2.is_contiguous()):
+        raise ValueError("ml2_maxlog: y, h and sigma2 must be contiguous")
+    if nl not in ML2_KERNEL_LAYERS or not 1 <= nr <= ML2_KERNEL_MAX_NR \
+            or qm not in ML2_KERNEL_QM:
+        raise ValueError(f"ml2_maxlog: takes NL in {ML2_KERNEL_LAYERS}, Nr "
+                         f"1..{ML2_KERNEL_MAX_NR} and Qm in {ML2_KERNEL_QM}, "
+                         f"got NL {nl}, Nr {nr}, Qm {qm}")
+    syms = _device_tables(modtype, nl, dev)[0]
+    best = torch.empty(n, dtype=torch.int64, device=dev)
+    min_lv = torch.empty(n, dtype=torch.float32, device=dev)
+    llr = torch.empty((n, nl * qm), dtype=torch.float32, device=dev)
+    if n == 0:
+        return best, min_lv, llr
+    fn = kernels.library("ml2_maxlog").ml2_maxlog
+    rc = fn(y.data_ptr(), h.data_ptr(), syms.data_ptr(), sigma2.data_ptr(),
+            best.data_ptr(), min_lv.data_ptr(), llr.data_ptr(), n, nr, nl,
+            qm, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check("ml2_maxlog", rc)
+    kernels.LAUNCHES["ml2_maxlog"] += 1
+    return best, min_lv, llr
+
+
+def _ml2(y, h, cov, modtype, irc, soft, on_kernel):
+    y, h, cov = _whitened(y, h, cov, irc)
+    n, nl = h.shape[0], h.shape[-1]
+    sigma2 = _sigma2(cov)
+    if on_kernel:
+        profiling.count("ml2_kernel_res", n)
+        best, min_lv, llr = ml2_maxlog(y.contiguous(), h.contiguous(),
+                                       sigma2.contiguous(), modtype)
+    else:
+        profiling.count("ml2_plain_res", n)
+        best, min_lv, llr = ml2_maxlog_plain(y, h, sigma2, modtype, soft)
+    _, cand_t, bits_t = _device_tables(modtype, nl, y.device)
+    hard = bits_t[best]
+    if not soft:
+        llr = _hard_llr(hard)
+    return cand_t[best], min_lv[:, None].expand(n, nl), hard, llr
+
+
+def ml2(y, h, cov, modtype: str, irc: bool = False, soft: bool = True):
+    """Exact max-log ML (reference ML2.py:47-163), batched over REs: the
+    per-bit LLR is the minimum metric over every candidate vector with
+    that bit 1 minus the minimum with that bit 0. The search after the
+    whitening is csrc/ml2_maxlog.cu where ml2_on_kernel says so, else
+    ml2_maxlog_plain."""
+    return _ml2(y, h, cov, modtype, irc, soft, ml2_on_kernel(h, modtype))
+
+
+def ml2_plain(y, h, cov, modtype: str, irc: bool = False,
+              soft: bool = True):
+    """ml2 through ml2_maxlog_plain on any device: the kernel's
+    counterpart on the card, and what parallel/tp.py:tp_ml2 splits over
+    ranks."""
+    return _ml2(y, h, cov, modtype, irc, soft, False)
 
 
 def _ml_finish(y, h, cov, modtype, s_est, best_lay_idx, soft):

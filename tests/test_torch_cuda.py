@@ -5,7 +5,8 @@ CUDA graph on the card), its study and UCI on PUSCH against the CPU, and
 the multi-channel DL waveforms (a full-width test model, all four DL
 channels at 245.76 Msps, the standalone SSB waveform), and the receiver
 breadth against the CPU (the per-slot RX, the ML equalizers, the DCT CE,
-the TDL channel with pinned taps).
+the TDL channel with pinned taps), and ML2's search kernel against the
+plain search on the card.
 
 Marked `cuda`; every test skips (from the `cuda_device` fixture) where
 torch sees no CUDA device. On the card (whose Python has no jax, which
@@ -936,6 +937,157 @@ def test_ml_irc_whitening_in_eigh_batches_on_card(cuda_device):
                                      device="cpu")
     assert torch.equal(card[2].cpu(), host[2])
     assert (card[3].cpu() - host[3]).abs().max() <= 1e-3 * host[3].abs().max()
+
+
+# --- ML2's search: csrc/ml2_maxlog.cu against the plain search ------------
+#
+# Tolerance: the kernel sums |(y - h0 c0) - h1 c1|^2 as re^2 + im^2 with
+# FMAs, the plain search |y - (h0 c0 + h1 c1)| by hypot, squared; each
+# metric takes a few FP32 roundings of its own size either way (~1e-6
+# relative), and an LLR is a difference of two metrics, so LLRs and the
+# least metric are held within 1e-4 of their largest magnitude. The best
+# candidate is the first of least metric in both; where the two
+# arithmetics disagree it must be a tie within that rounding.
+
+def _ml2_inputs(rng, n, nr, nl, modtype, snr_amp=0.1):
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    syms, _ = teq.constellation(modtype)
+    h = (rng.normal(size=(n, nr, nl)) + 1j * rng.normal(size=(n, nr, nl))) \
+        / np.sqrt(2)
+    s = syms[rng.integers(len(syms), size=(n, nl))]
+    y = np.einsum("nrl,nl->nr", h, s) + snr_amp * (
+        rng.normal(size=(n, nr)) + 1j * rng.normal(size=(n, nr)))
+    a = 0.2 * (rng.normal(size=(n, nr, nr)) + 1j * rng.normal(size=(n, nr, nr)))
+    cov = a @ a.conj().transpose(0, 2, 1) / 8 + 0.05 * np.eye(nr)
+    return [v.astype(np.complex64) for v in (y, h, cov)]
+
+
+def _ml2_search_pair(device, y, h, cov, modtype, irc):
+    """The kernel's and the plain search's (best, min_lv, llr) on the same
+    whitened inputs, and those inputs; the kernel launched once."""
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    y, h, cov = (torch.as_tensor(v, device=device) for v in (y, h, cov))
+    yw, hw, cw = teq._whitened(y, h, cov, irc)
+    s2 = teq._sigma2(cw)
+    before = kernels.LAUNCHES["ml2_maxlog"]
+    got = teq.ml2_maxlog(yw.contiguous(), hw.contiguous(), s2.contiguous(),
+                         modtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ml2_maxlog"] == before + 1
+    return got, teq.ml2_maxlog_plain(yw, hw, s2, modtype), (yw, hw, s2)
+
+
+def _assert_ml2_search_close(got, ref, inputs, modtype):
+    """-> the number of REs whose best candidates differ (ties)."""
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    best, min_lv, llr = got
+    rbest, rmin, rllr = ref
+    assert (llr - rllr).abs().max() <= 1e-4 * rllr.abs().max()
+    assert (min_lv - rmin).abs().max() <= 1e-4 * rmin.abs().max()
+    differ = torch.nonzero(best != rbest)[:, 0]
+    if len(differ):
+        yw, hw, s2 = inputs
+        cand = torch.as_tensor(teq._candidates(modtype, hw.shape[-1])[1],
+                               device=yw.device)
+        lv = teq._distances(yw[differ], hw[differ], cand) / s2[differ, None]
+        pick = lv.gather(1, best[differ, None])[:, 0]
+        # a tie within float rounding: the kernel's pick scores the plain
+        # minimum to a few ulps in the plain arithmetic
+        assert ((pick - rmin[differ]).abs()
+                <= 1e-5 * rmin[differ].abs() + 1e-30).all(), differ
+    return len(differ)
+
+
+@pytest.mark.parametrize("irc", [False, True])
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_ml2_kernel_on_the_goldens(cuda_device, case, irc):
+    """The equalize_ml2_cases inputs (16QAM; 2x2, 4x2 and 4x1): ml2 goes
+    through the kernel once and its hard bits equal the plain search's,
+    LLRs within 1e-4 of their scale."""
+    import pathlib
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    path = pathlib.Path(__file__).parent / "golden" / \
+        "equalize_ml2_cases.npz"
+    with np.load(path) as z:
+        y, h, cov = (z[f"{v}_{case}"].astype(np.complex64)
+                     for v in ("y", "h", "cov"))
+    args = [torch.as_tensor(v, device=cuda_device) for v in (y, h, cov)]
+    before = kernels.LAUNCHES["ml2_maxlog"]
+    got = teq.ml2(*args, "16qam", irc=irc)
+    assert kernels.LAUNCHES["ml2_maxlog"] == before + 1
+    ref = teq.ml2_plain(*args, "16qam", irc=irc)
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[0], ref[0])
+    assert (got[3] - ref[3]).abs().max() <= 1e-4 * ref[3].abs().max()
+    assert _assert_ml2_search_close(*_ml2_search_pair(
+        cuda_device, y, h, cov, "16qam", irc), "16qam") == 0
+
+
+def test_ml2_kernel_full_slot(cuda_device):
+    """A full bench slot's worth of REs at the cell's shape: 36,036 REs,
+    64QAM, 2 layers, 4 RX, IRC, in one launch."""
+    rng = np.random.default_rng(11)
+    y, h, cov = _ml2_inputs(rng, 36036, 4, 2, "64qam")
+    ties = _assert_ml2_search_close(*_ml2_search_pair(
+        cuda_device, y, h, cov, "64qam", True), "64qam")
+    assert ties <= 3
+
+
+@pytest.mark.parametrize("modtype,nl,nr,n", [
+    ("qpsk", 2, 4, 4001), ("256qam", 2, 4, 1027), ("16qam", 2, 4, 999),
+    ("qpsk", 1, 4, 513), ("16qam", 1, 2, 257), ("64qam", 1, 4, 1001),
+    ("256qam", 1, 4, 1003), ("64qam", 2, 1, 301), ("64qam", 2, 3, 302),
+    ("64qam", 2, 8, 303), ("bpsk", 2, 2, 37), ("64qam", 2, 4, 1),
+    ("16qam", 2, 4, 6)])
+def test_ml2_kernel_shapes(cuda_device, modtype, nl, nr, n):
+    """Every constellation and both layer counts, 1 to 8 RX antennas (3
+    padded to 4), N ragged against the block's 4 REs."""
+    rng = np.random.default_rng(n)
+    y, h, cov = _ml2_inputs(rng, n, nr, nl, modtype)
+    for irc in (False, True):
+        ties = _assert_ml2_search_close(*_ml2_search_pair(
+            cuda_device, y, h, cov, modtype, irc), modtype)
+        assert ties <= 1
+
+
+def test_ml2_kernel_first_minimum_on_a_tie(cuda_device):
+    """y = 0, h0 = e_0, h1 = e_1 (64QAM, 4 RX): d(i, j) = |c_i|^2 + |c_j|^2
+    exactly in both arithmetics, so the 16 pairs of inner points tie; both
+    pick the first of them in row-major order. A random RE beside it."""
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    rng = np.random.default_rng(5)
+    y, h, cov = _ml2_inputs(rng, 2, 4, 2, "64qam")
+    y[0] = 0
+    h[0] = 0
+    h[0, 0, 0] = h[0, 1, 1] = 1
+    cov[0] = np.eye(4)
+    got, ref, (yw, hw, s2) = _ml2_search_pair(cuda_device, y, h, cov,
+                                              "64qam", False)
+    lv = teq._distances(yw[:1], hw[:1], torch.as_tensor(
+        teq._candidates("64qam", 2)[1], device=cuda_device))[0]
+    assert int((lv == lv.min()).sum()) == 16
+    assert int(got[0][0]) == int(ref[0][0]) == int(torch.argmin(lv))
+    assert _assert_ml2_search_close(got, ref, (yw, hw, s2), "64qam") == 0
+
+
+def test_ml2_kernel_rejects_what_it_does_not_take(cuda_device):
+    from python_5gtoolbox_tpu_torch.rx import equalize as teq
+    y, h, cov = (torch.as_tensor(v, device=cuda_device) for v in
+                 _ml2_inputs(np.random.default_rng(1), 8, 4, 2, "qpsk"))
+    s2 = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        teq.ml2_maxlog(y, h.transpose(1, 2).contiguous().transpose(1, 2),
+                       s2, "qpsk")
+    with pytest.raises(ValueError):
+        teq.ml2_maxlog(y.to(torch.complex128), h, s2, "qpsk")
+    with pytest.raises(ValueError):
+        teq.ml2_maxlog(y.cpu(), h.cpu(), s2.cpu(), "qpsk")
+    h3 = torch.cat([h, h[..., :1]], dim=-1)
+    with pytest.raises(ValueError):
+        teq.ml2_maxlog(y, h3, s2, "qpsk")
+    # three layers on the card take the plain search, no launch
+    before = kernels.LAUNCHES["ml2_maxlog"]
+    teq.ml2(y, h3, cov, "qpsk", irc=True)
+    assert kernels.LAUNCHES["ml2_maxlog"] == before
 
 
 # --- UL control and PRACH ---------------------------------------------------

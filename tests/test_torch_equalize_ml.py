@@ -1,13 +1,16 @@
 """PyTorch port, the ML equalizer family (rx/equalize.py: ML, ML2,
 MMSE-ML, opt-rank2-ML, each with IRC): the equalize_ml_cases and
 equalize_ml2_cases goldens, every algorithm against the JAX package on
-the same inputs, the RE-axis split of the candidate tensor, and the
-slot-batched RX with ML algorithms.
+the same inputs, the RE-axis split of the candidate tensor, the
+slot-batched RX with ML algorithms, and ML2's choice between the card's
+kernel and the plain search with its two counters.
 
 Tolerances: the goldens' own (s 1e-3, LLR 2e-2, tests/test_equalize_ml.py);
 against the JAX package hard bits exactly, LLRs within 1e-3 of their
 largest magnitude, s within 1e-5; split against unsplit exactly.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +20,10 @@ from tests.test_equalize_ml import CASES, ML2_CASES, MODTYPE
 
 from python_5gtoolbox_tpu.rx import equalize as jeq
 
+from python_5gtoolbox_tpu_torch import kernels
 from python_5gtoolbox_tpu_torch.phy import pdsch as tpdsch
 from python_5gtoolbox_tpu_torch.rx import equalize as teq
+from python_5gtoolbox_tpu_torch.utils import profiling
 from python_5gtoolbox_tpu_torch.utils.config import get_default_config, merged
 
 
@@ -131,3 +136,45 @@ def test_batched_rx_takes_ml():
         ok, tb = ch.rx_process_batch(rx, [0, 1], {"algo": algo}, ldpc, ce)
         assert ok.all(), algo
         np.testing.assert_array_equal(tb, blocks)
+
+
+@pytest.mark.parametrize("nl", [1, 2, 3])
+def test_ml2_route_sends_cpu_tensors_to_the_plain_search(nl):
+    """A CPU tensor takes the plain search whatever its shape, and
+    launches nothing."""
+    y, h, cov = (torch.as_tensor(v) for v in _inputs("qpsk", nl, n=6))
+    assert not teq.ml2_on_kernel(h, "qpsk")
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(teq.ml2(y, h, cov, "qpsk", irc=True)[3],
+                       teq.ml2_plain(y, h, cov, "qpsk", irc=True)[3])
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,modtype,on_kernel", [
+    ((5, 4, 2), "64qam", True), ((5, 4, 1), "256QAM", True),
+    ((5, 8, 2), "qpsk", True), ((5, 4, 3), "qpsk", False),
+    ((5, 9, 2), "16qam", False), ((5, 4, 2), "1024qam", False)])
+def test_ml2_route_on_a_cuda_tensor(shape, modtype, on_kernel):
+    """On a CUDA tensor the kernel takes NL <= 2, Nr <= 8 and Qm <= 8;
+    three layers (and what else it does not take) go to the plain search.
+    The chooser reads only is_cuda and the shape, so a stand-in shows it
+    without a card."""
+    h = types.SimpleNamespace(is_cuda=True, shape=shape)
+    assert teq.ml2_on_kernel(h, modtype) is on_kernel
+
+
+def test_ml2_counts_plain_res_under_a_profiler():
+    y, h, cov = (torch.as_tensor(v) for v in _inputs("16qam", 2, n=13))
+    prof = profiling.StageProfiler("cpu")
+    with prof.stage("rx"):
+        teq.ml2(y, h, cov, "16qam", irc=True)
+        teq.ml2(y[:5], h[:5], cov[:5], "16qam")
+    assert prof.counters == {"ml2_plain_res": 18}
+
+
+def test_ml2_counts_nothing_without_a_profiler():
+    y, h, cov = (torch.as_tensor(v) for v in _inputs("16qam", 2, n=7))
+    prof = profiling.StageProfiler("cpu")
+    assert profiling.active() is None
+    teq.ml2(y, h, cov, "16qam", irc=True)
+    assert prof.counters == {}
