@@ -6,13 +6,13 @@
 
 For each seed of --seeds, the program runs the points a run with that
 seed compares (the same draw from the seed as harness.measure) and the
-numbers are read against the reference, as a run reads them: the lower
-readings. For each seed of --control-seeds the control takes the
-program's place: the reference with its signals kept in bfloat16
-(reference/chain.py, bf16=True), against the reference: the upper
-readings. --perturbed-seeds: the reference with its LLRs perturbed by
---noise (relative), against the reference: how near the CRC flags lie
-to a flip at that size. One JSON line per seed and side; with --out
+numbers are read against the cell's reference (spec.reference), as a
+run reads them: the lower readings. For each seed of --control-seeds the
+control takes the program's place: the reference with its signals kept
+in bfloat16 (bf16=True), against the reference: the upper readings.
+--perturbed-seeds: the reference with its LLRs perturbed by --noise
+(relative), against the reference: how near the CRC flags lie to a flip
+at that size. One JSON line per seed and side; with --out
 also appended to that file. Needs a CUDA device, as a run does; on the
 CPU (--device cpu) it reads a small cell for the tests.
 """
@@ -31,7 +31,6 @@ import time
 import torch
 
 from portbench import compare, harness, probe as probe_mod, spec
-from portbench.reference import chain
 
 
 def sampled_points(cell, seed: int) -> list[int]:
@@ -55,8 +54,9 @@ def program_readings(cell, seed: int, device) -> dict:
                 program.point(si, program.snr(i), trb)
             probe.disarm()
             got = probe.outputs(i)
-            ref = chain.point(copy.deepcopy(cell.config), cell.traffic,
-                              program.snr(i), si, trb, device)
+            ref = cell.reference.point(copy.deepcopy(cell.config),
+                                       cell.traffic, program.snr(i), si, trb,
+                                       device)
             per_point.append(compare.point_numbers(got, ref, trb))
             probe.taken.pop(i)
     finally:
@@ -73,8 +73,9 @@ def control_readings(cell, seed: int, device) -> dict:
         si = program.seed(seed, i)
         trb = program.trblks(si)
         args = (cell.traffic, program.snr(i), si, trb, device)
-        got = chain.point(copy.deepcopy(cell.config), *args, bf16=True)
-        ref = chain.point(copy.deepcopy(cell.config), *args)
+        got = cell.reference.point(copy.deepcopy(cell.config), *args,
+                                   bf16=True)
+        ref = cell.reference.point(copy.deepcopy(cell.config), *args)
         per_point.append(compare.point_numbers(got, ref, trb))
     return compare.combine(per_point)
 
@@ -89,8 +90,9 @@ def perturbed_readings(cell, seed: int, device, noise: float) -> dict:
         si = program.seed(seed, i)
         trb = program.trblks(si)
         args = (cell.traffic, program.snr(i), si, trb, device)
-        got = chain.point(copy.deepcopy(cell.config), *args, llr_noise=noise)
-        ref = chain.point(copy.deepcopy(cell.config), *args)
+        got = cell.reference.point(copy.deepcopy(cell.config), *args,
+                                   llr_noise=noise)
+        ref = cell.reference.point(copy.deepcopy(cell.config), *args)
         per_point.append(compare.point_numbers(got, ref, trb))
     return compare.combine(per_point)
 

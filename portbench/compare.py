@@ -1,8 +1,8 @@
 """The numbers that decide `correct`, from one point's two sets of outputs.
 
 Each number compares what the timed path produced (probe.Probe) with
-what the reference worked out again (reference/chain.py) for the same
-point:
+what the configuration's reference worked out again (spec.reference) for
+the same point:
 
   tx_err, channel_err, grid_err   relative RMS error of the TX waveform,
                                   the channel output and the RX grid:
@@ -13,6 +13,16 @@ point:
   passed_tb_wrong                 slots the program passed whose decoded
                                   block is not the block that was sent
 
+and, for each decoded side stream that the reference returns (its
+streams and sent; the PUSCH's UCI), summed over every equalizer:
+
+  flag_mismatch.<stream>          slots whose ok differs from the
+                                  reference's
+  bits_mismatch.<stream>          slots whose decoded bits differ from
+                                  the reference's decoded bits
+  passed_wrong.<stream>           slots the program passed whose bits
+                                  are not the bits that were sent
+
 A point's numbers are combined over the sampled points by their maximum
 (the counts by their sum). A missing output (a stage the timed path no
 longer went through, a shape that differs) reads inf.
@@ -22,6 +32,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+STREAM_COUNTS = ("flag_mismatch", "bits_mismatch", "passed_wrong")
+COUNTS = ("flag_mismatch", "passed_tb_wrong") + STREAM_COUNTS
 
 
 def rel_err(got, ref) -> float:
@@ -58,7 +71,29 @@ def point_numbers(got: dict, ref: dict, trblks: torch.Tensor) -> dict:
         wrong += int((g_ok.to(trblks.device) & bad).sum())
     out["flag_mismatch"] = float(mismatch)
     out["passed_tb_wrong"] = float(wrong)
+    got_streams = got.get("streams", {})
+    for name, algos in ref.get("streams", {}).items():
+        out.update(stream_numbers(name, got_streams.get(name, {}), algos,
+                                  ref["sent"][name]))
     return out
+
+
+def stream_numbers(name: str, got: dict, ref: dict, sent) -> dict:
+    """The three counts of one side stream: got and ref {equalizer:
+    (bits (Sa, n), ok (Sa,))}, sent (Sa, n)."""
+    keys = [f"{k}.{name}" for k in STREAM_COUNTS]
+    counts = [0, 0, 0]
+    for algo, (r_bits, r_ok) in ref.items():
+        g = got.get(algo)
+        if g is None or tuple(g[0].shape) != tuple(r_bits.shape) \
+                or tuple(g[1].shape) != tuple(r_ok.shape):
+            return dict.fromkeys(keys, math.inf)
+        g_bits, g_ok = g[0].to(r_bits.device), g[1].to(r_ok.device, torch.bool)
+        counts[0] += int((g_ok != r_ok.to(torch.bool)).sum())
+        counts[1] += int((g_bits != r_bits).any(dim=1).sum())
+        bad = (g_bits != sent.to(g_bits.device)).any(dim=1)
+        counts[2] += int((g_ok & bad).sum())
+    return {k: float(c) for k, c in zip(keys, counts)}
 
 
 def combine(per_point: list[dict]) -> dict:
@@ -67,7 +102,7 @@ def combine(per_point: list[dict]) -> dict:
     out: dict = {}
     for nums in per_point:
         for k, v in nums.items():
-            if k in ("flag_mismatch", "passed_tb_wrong"):
+            if k.split(".")[0] in COUNTS:
                 out[k] = out.get(k, 0.0) + v
             else:
                 out[k] = max(out.get(k, 0.0), v)

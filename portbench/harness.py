@@ -23,11 +23,13 @@ With --trace 1 the first points of the window (the traffic's
 trace_points) run under torch.profiler, which gives the device's busy
 share, its operations and the card's idle gaps; the rest of the window
 runs under the benchmark's stage timer (the port's StageProfiler, each
-stage also a record_function span), which gives the per-layer times.
+stage also a record_function span), which gives the per-layer times and
+the program's counters (read once the window has closed).
 
 After the window the probe's copies of a few points drawn from the seed
-(probe.py) are compared with the plain reference (reference/chain.py),
-once the peak memory has been read and the program's state freed.
+(probe.py) are compared with the configuration's plain reference
+(cell.reference, spec.reference), once the peak memory has been read and
+the program's state freed.
 """
 from __future__ import annotations
 
@@ -45,7 +47,6 @@ from dataclasses import dataclass, field
 import torch
 
 from portbench import compare, probe as probe_mod, trace as trace_mod
-from portbench.reference import chain
 from portbench.reference.frozen.phy import tbsize as tbs_mod
 from portbench.reference.frozen.utils.numerology import (carrier_prb_size,
                                                          fft_size,
@@ -161,8 +162,11 @@ class Program:
 
 @dataclass
 class Run:
-    """What a run measured, for the per-layer readers."""
+    """What a run measured, for the per-layer readers: the stage timer's
+    stage seconds and counters over the stage_slots of the staged
+    sub-window, and the traced sub-window's device events."""
     stages: dict = field(default_factory=dict)
+    counters: dict = field(default_factory=dict)
     stage_slots: int = 0
     device_events: list = field(default_factory=list)
     busy_s: float = 0.0
@@ -177,6 +181,11 @@ class Run:
         if not secs or not self.stage_slots:
             return None
         return 1e3 * sum(secs) / self.stage_slots
+
+    def counter_per_slot(self, name: str):
+        if name not in self.counters or not self.stage_slots:
+            return None
+        return self.counters[name] / self.stage_slots
 
     def device_seconds(self, part: str):
         secs = [b - a for n, a, b in self.device_events if part in n]
@@ -263,6 +272,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
               f"median {q[len(q) // 2]:.4f} max {q[-1]:.4f}", file=log)
         if trace:
             run.stages = {k: s.seconds for k, s in stages.timer.stats.items()}
+            run.counters = dict(stages.timer.counters)
             run.stage_slots = slots - slots_at_stage
             if not run.stage_slots:
                 raise RuntimeError("the window ended inside the traced "
@@ -294,8 +304,8 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
     per_point = []
     for i, (si, snr, trb) in sorted(kept.items()):
         got = probe.outputs(i)
-        ref = chain.point(copy.deepcopy(cell.config), traffic, snr, si, trb,
-                          dev)
+        ref = cell.reference.point(copy.deepcopy(cell.config), traffic, snr,
+                                   si, trb, dev)
         per_point.append(compare.point_numbers(got, ref, trb))
         del got, ref
         probe.taken.pop(i)

@@ -6,9 +6,11 @@ returned: the TX waveform (waveform.dl.gen_dl_waveform /
 waveform.ul.gen_ul_waveform), the channel output (NrChannelModel.filter),
 the RX front end's grid (waveform.rx.waveform_rx_processing), every
 equalizer's LLRs (rx.batch_core.equalize_and_demod_traced on the
-slot-batched RX, phy.pdsch_rx.channel_equ_and_demod per slot) and the
+slot-batched RX, phy.pdsch_rx.channel_equ_and_demod per slot), the
 decoded blocks with their CRC flags (rx_process_batch / RX_process of
-the PDSCH and the PUSCH). Unarmed, a wrapper only calls through. The
+the PDSCH and the PUSCH) and the decoded side streams beside them (the
+PUSCH's UCI: rx_process_batch's third result, RX_process's fourth, a
+dict {name: (bits, ok)}). Unarmed, a wrapper only calls through. The
 wrapped functions run unchanged: the probe reads their results and
 copies them (one device copy per stage of a sampled point).
 """
@@ -36,7 +38,7 @@ class Probe:
 
     def arm(self, key) -> None:
         self._key = key
-        self.taken[key] = dict(llr={}, ok={}, tbblk={})
+        self.taken[key] = dict(llr={}, ok={}, tbblk={}, streams={})
 
     def disarm(self) -> None:
         self._key = None
@@ -51,6 +53,19 @@ class Probe:
             rec[name].setdefault(algo, []).append(_copy(value))
         else:
             rec[name][algo] = _copy(value)
+
+    def _put_streams(self, streams: dict, algo, append=False):
+        """streams {name: (bits, ok)} of one equalizer into
+        streams[name][algo] (a list of per-slot pairs with append)."""
+        if self._key is None:
+            return
+        rec = self.taken[self._key]["streams"]
+        for name, (bits, ok) in streams.items():
+            pair = (_copy(torch.as_tensor(bits)), _copy(torch.as_tensor(ok)))
+            if append:
+                rec.setdefault(name, {}).setdefault(algo, []).append(pair)
+            else:
+                rec.setdefault(name, {})[algo] = pair
 
     def _wrap(self, owner, attr, make):
         orig = getattr(owner, attr)
@@ -108,6 +123,8 @@ class Probe:
                 out = orig(obj, rx_fd, slots, ceq_config, *a, **k)
                 put("ok", out[0], ceq_config["algo"])
                 put("tbblk", out[1], ceq_config["algo"])
+                if len(out) > 2 and isinstance(out[2], dict):
+                    self._put_streams(out[2], ceq_config["algo"])
                 return out
             return fn
 
@@ -117,6 +134,9 @@ class Probe:
                 put("ok", torch.as_tensor(out[0]), ceq_config["algo"],
                     append=True)
                 put("tbblk", out[1], ceq_config["algo"], append=True)
+                if len(out) > 3 and isinstance(out[3], dict) and out[3]:
+                    self._put_streams(out[3], ceq_config["algo"],
+                                      append=True)
                 return out
             return fn
 
@@ -140,9 +160,13 @@ class Probe:
         stacked, LLR pieces concatenated in call order."""
         rec = self.taken[key]
         out = {k: v for k, v in rec.items() if k not in ("llr", "ok",
-                                                          "tbblk")}
+                                                          "tbblk", "streams")}
         out["llr"] = {a: torch.cat(v) for a, v in rec["llr"].items()}
         for name in ("ok", "tbblk"):
             out[name] = {a: torch.stack(v) if isinstance(v, list) else v
                          for a, v in rec[name].items()}
+        out["streams"] = {
+            name: {a: tuple(torch.stack(x) for x in zip(*v))
+                   if isinstance(v, list) else v for a, v in algos.items()}
+            for name, algos in rec["streams"].items()}
         return out

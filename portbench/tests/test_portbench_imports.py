@@ -39,8 +39,33 @@ def test_the_harness_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_port():
-    tops = {m.split(".")[0] for m in _loaded(["portbench.reference.chain"])}
-    assert not tops & (set(BANNED) | {PORT})
+    """Every module under portbench/reference/ (a configuration's own
+    reference under configs/ too), loaded by its file in one process: the
+    top-level names it adds to sys.modules."""
+    paths = sorted(str(p) for p in (ROOT / "portbench/reference")
+                   .rglob("*.py"))
+    code = ("import importlib.util, json, sys\n"
+            "added = {}\n"
+            f"for i, path in enumerate({paths!r}):\n"
+            "    before = set(sys.modules)\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        f'_reference_{i}', path)\n"
+            "    mod = sys.modules[spec.name] = \\\n"
+            "        importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    added[path] = sorted({m.split('.')[0]\n"
+            "                          for m in set(sys.modules) - before})\n"
+            "print(json.dumps(added))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+                              "JAX_PLATFORMS": "cpu"})
+    added = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(added) == paths
+    assert "portbench/reference/chain.py" in {
+        str(pathlib.Path(p).relative_to(ROOT)) for p in added}
+    for path, tops in added.items():
+        assert not set(tops) & (set(BANNED) | {PORT}), (path, tops)
 
 
 @pytest.mark.parametrize("path", sorted(

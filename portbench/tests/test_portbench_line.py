@@ -79,6 +79,29 @@ def test_result_line_traced(monkeypatch, capsys):
             "rx_lowphy_ms_per_slot", "rx_batch_ms_per_slot"} <= names
     assert "channel_est_ms_per_slot" not in names
     assert "banded_fir_roofline" not in names      # no kernel on the CPU
+    assert "ldpc_iterations_per_slot" not in names  # counted on the card
+
+
+def test_run_keeps_the_stage_timers_counters(monkeypatch):
+    """After the window Run holds the counters of the staged sub-window:
+    here one counted a batched equalizer call."""
+    from python_5gtoolbox_tpu_torch.rx import batch_core
+    from python_5gtoolbox_tpu_torch.utils import profiling
+    orig = batch_core.equalize_and_demod_traced
+    calls = []
+
+    def fn(*a):
+        calls.append(profiling.active())
+        profiling.count("equalizer_calls", 1)
+        return orig(*a)
+    monkeypatch.setattr(batch_core, "equalize_and_demod_traced", fn)
+    res = harness.measure(tiny(CELLS[0]), 2 ** 31 + 26, 0.1, True, "cpu",
+                          time.perf_counter())
+    run = res["run"]
+    staged = calls[-1]
+    assert run.counters == {"equalizer_calls": calls.count(staged)} != {}
+    assert run.counter_per_slot("equalizer_calls") == \
+        calls.count(staged) / run.stage_slots
 
 
 def test_setup_counts_from_process_start():

@@ -1,7 +1,8 @@
 """The readers of the program's spans inside TX and the batched RX, on a
 synthetic Run: milliseconds a slot of their span, nothing where the span
 is missing (a program without it), and tx_lowphy_ms_per_slot the sum of
-low_phy and channel_filter."""
+low_phy and channel_filter; the readers of its counters: the count a
+slot, nothing where the counter is missing."""
 from __future__ import annotations
 
 import pytest
@@ -61,3 +62,21 @@ def test_span_names_leave_the_stage_metrics_as_they_were():
                    "rx_lowphy_ms_per_slot", "rx_batch_ms_per_slot"):
         read = spec.metric_reader(ROOT, metric).read
         assert read(with_spans) == read(without) is not None
+
+
+def test_counter_per_slot():
+    run = Run(counters={"ldpc_iterations": 4620, "ml2_kernel_res": 0},
+              stage_slots=40)
+    assert run.counter_per_slot("ldpc_iterations") == 4620 / 40
+    assert run.counter_per_slot("ml2_kernel_res") == 0.0
+    assert run.counter_per_slot("polar_decodes") is None
+    assert Run(counters={"ldpc_iterations": 10}).counter_per_slot(
+        "ldpc_iterations") is None          # no staged slots
+
+
+def test_ldpc_iterations_reader():
+    read = spec.metric_reader(ROOT, "ldpc_iterations_per_slot").read
+    run = Run(stages=dict(PARENT_STAGES), counters={"ldpc_iterations": 2280},
+              stage_slots=20)
+    assert read(run) == 2280 / 20
+    assert read(Run(stages=dict(PARENT_STAGES), stage_slots=20)) is None

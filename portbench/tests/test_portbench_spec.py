@@ -8,6 +8,7 @@ import shutil
 import pytest
 
 from portbench import bounds, spec
+from portbench.reference import chain
 from portbench.tests.tiny_cells import CELLS, ROOT
 
 BENCH = spec.load(ROOT)
@@ -76,6 +77,7 @@ def test_cell_found_by_name(name):
                                 "flag_mismatch", "passed_tb_wrong"}
     for algo in cell.traffic["equalizers"]:
         assert f"llr_err.{algo}" in cell.limits
+    assert cell.reference.point is chain.point
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
