@@ -36,6 +36,7 @@ from python_5gtoolbox_tpu_torch.ops import crc as crc_ops
 from python_5gtoolbox_tpu_torch.ops.polar.construct import construct
 from python_5gtoolbox_tpu_torch.ops.polar.interleave import \
     input_deinterleave_table
+from python_5gtoolbox_tpu_torch.utils import profiling
 
 _BIG = 1e30
 _POLY = {6: "6", 11: "11", 24: "24C"}
@@ -194,10 +195,14 @@ def _leaf_loop_cuda(key, chan, mask_sign, leaves, srcs, L):
     captured on the first call (after one warm-up run on a side stream),
     replayed after copying the inputs into its static buffers. Every
     tensor the graph reads stays referenced by its cache entry. The
-    outputs are the graph's buffers: read them before the next call."""
+    outputs are the graph's buffers: read them before the next call. Each
+    call adds to the open profiler's counter polar_graph_captures (1 for
+    a capture, 0 for a replay; utils.profiling.count, nothing without a
+    profiler)."""
     key = key + (tuple(chan.shape), tuple(mask_sign.shape), L,
                  chan.device.index)
-    if key not in _GRAPHS:
+    captured = key not in _GRAPHS
+    if captured:
         st_chan, st_mask = chan.clone(), mask_sign.clone()
         side = torch.cuda.Stream(device=chan.device)
         side.wait_stream(torch.cuda.current_stream(chan.device))
@@ -210,6 +215,7 @@ def _leaf_loop_cuda(key, chan, mask_sign, leaves, srcs, L):
         _GRAPHS[key] = (graph, st_chan, st_mask, u, pm, srcs)
         while len(_GRAPHS) > _GRAPHS_KEPT:
             _GRAPHS.popitem(last=False)
+    profiling.count("polar_graph_captures", int(captured))
     graph, st_chan, st_mask, u, pm, _ = _GRAPHS[key]
     _GRAPHS.move_to_end(key)
     st_chan.copy_(chan)

@@ -66,32 +66,30 @@ BASIS = np.array([
 
 
 def encode_smallblock_np(inbits: np.ndarray, qm: int = 2) -> np.ndarray:
-    """Single-block encode, reference-compatible (with the -1/-2 codes)."""
-    inbits = np.asarray(inbits)
-    k = inbits.size
-    assert k < 12 and qm in (1, 2, 4, 6, 8)
-    off = qm // 2
-    if k == 1:
-        dn = np.asarray(_ENC_1BIT[off], np.int8).copy()
-        dn[0] = inbits[0]
-        return dn
-    if k == 2:
-        c = [int(inbits[0]), int(inbits[1]),
-             (int(inbits[0]) + int(inbits[1])) % 2]
-        dn = np.asarray(_ENC_2BIT[off], np.int8)
-        out = dn.copy()
-        out[dn == 0] = c[0]
-        out[dn == 3] = c[1]
-        out[dn == 5] = c[2]
-        return out
-    return ((BASIS[:, :k].astype(np.int64) @ inbits.astype(np.int64)) % 2
-            ).astype(np.int8)
+    """Single-block encode, reference-compatible (with the -1/-2 codes):
+    encode_smallblock of one (K,) block on the host."""
+    assert qm in (1, 2, 4, 6, 8)
+    return encode_smallblock(torch.as_tensor(np.asarray(inbits, np.int8)),
+                             qm).numpy()
 
 
 def encode_smallblock(bits: torch.Tensor, qm: int = 2) -> torch.Tensor:
-    """Batched encode for K >= 3: (..., K) -> (..., 32) int8."""
+    """Batched encode: (..., K) -> (..., 32) int8 for K >= 3 (the
+    Reed-Muller code as a product mod 2); for K 1 and 2 the special table
+    of the modulation order qm with its x / y placeholders, (..., its
+    length)."""
     k = bits.shape[-1]
-    assert 3 <= k < 12
+    assert 1 <= k < 12
+    if k <= 2:
+        b = bits.to(torch.int8)
+        table = torch.as_tensor((_ENC_1BIT if k == 1 else _ENC_2BIT)[qm // 2],
+                                dtype=torch.int8, device=bits.device)
+        out = table.expand(bits.shape[:-1] + table.shape)
+        for code, col in ((0, b[..., :1]), (3, b[..., 1:]),
+                          (5, b[..., :1] ^ b[..., 1:])):
+            if col.shape[-1]:
+                out = torch.where(table == code, col, out)
+        return out
     m = torch.as_tensor(BASIS[:, :k].T, dtype=torch.float32,
                         device=bits.device)
     return torch.remainder(bits.to(torch.float32) @ m, 2.0).to(torch.int8)

@@ -10,10 +10,15 @@ Port of python_5gtoolbox_tpu/phy/pusch.py. Two TX paths:
   as for the PDSCH (phy/pdsch.py:_pdsch_compose_grid);
 * process, one slot into a shared grid and RE-usage map, with UCI on
   PUSCH (HARQ-ACK, CSI part 1, CSI part 2; phy/pusch_uci.py): the UL-SCH
-  encode of the batched path at one slot, the UCI coded on the host, the
+  encode of the batched path at one slot, the coded UCI streams, the
   38.212 6.2.7 multiplex as one gather from a placement walk over index
   tags (cached per layout), then the symbol encode of the batched path,
   which scrambles the x/y placeholders.
+
+UCI payloads: the configuration's payload lists, coded once per object,
+or, where a stream's list is empty, a payload drawn per allocated slot
+(draw_uci_bits); encode_uci_rows codes every slot's payloads at once on
+the device, and each slot's process() multiplexes its own row.
 
 The DMRS is the PRBS sequence (CP-OFDM) or the low-PAPR sequence with
 group or sequence hopping (transform precoding). Transport blocks come
@@ -38,7 +43,8 @@ from python_5gtoolbox_tpu_torch.phy.grid import write_res
 from python_5gtoolbox_tpu_torch.phy.pdsch import (SlotBatchTx, dlsch_encode,
                                                   get_dmrs_symlist)
 from python_5gtoolbox_tpu_torch.phy.pusch_uci import (
-    encode_uci_on_ulsch, get_ulsch_rm_info, multiplex_tags)
+    UCI_STREAMS, encode_uci_on_ulsch, encode_uci_rows, get_ulsch_rm_info,
+    multiplex_tags)
 from python_5gtoolbox_tpu_torch.phy.validate import validate_pusch_config
 from python_5gtoolbox_tpu_torch.utils.numerology import (RE_USAGE,
                                                          carrier_prb_size)
@@ -110,6 +116,30 @@ def uci_on(pusch_config: dict) -> bool:
                 or cfg["EnableCSI2"] * cfg["NumCSI2Bits"])
 
 
+def uci_drawn(pusch_config: dict) -> list[str]:
+    """The UCI streams whose payload is drawn per allocated slot: those
+    that are on and whose payload list is empty."""
+    cfg = pusch_config
+    return [name for name, en, nb, bits, _ in UCI_STREAMS
+            if cfg[en] * cfg[nb] and not len(cfg[bits])]
+
+
+def draw_uci_bits(pusch_config: dict, n_alloc: int, seed: int,
+                  device) -> dict:
+    """The payloads of the drawn streams (uci_drawn) for n_alloc
+    allocated slots -> {name: (n_alloc, n bits) int8} on device, drawn
+    ack, then csi1, then csi2 from one torch.Generator on device seeded
+    with (2 * seed + 2) mod 2^63, seed the point's: a draw of transport
+    blocks from 2 * seed + 1 (portbench/harness.py) is another stream."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed((2 * seed + 2) % 2 ** 63)
+    nbits = {name: pusch_config[nb] for name, _, nb, _, _ in UCI_STREAMS}
+    return {name: torch.randint(0, 2, (n_alloc, nbits[name]), generator=gen,
+                                device=dev, dtype=torch.int8)
+            for name in uci_drawn(pusch_config)}
+
+
 def _dmrs_seq_no_tp(n_scid, nid, start6, size6, slot, sym) -> np.ndarray:
     cinit = ((((14 * slot + sym + 1) * (2 * nid + 1)) << 17)
              + 2 * nid + n_scid) % (2 ** 31)
@@ -153,6 +183,9 @@ class NrPUSCH(SlotBatchTx):
         self.tbs_lbrm = None            # no LBRM on UL: Ncb = N
         self.rvidx = -1
         self.trblk = None
+        # the frame's UCI payloads {name: (Sa, n bits) int8}, one row per
+        # allocated slot (draw_uci_bits), in place of the payload lists
+        self.uci_bits = None
         self._cache: dict = {}
 
     def tx_batch_supported(self) -> bool:
@@ -198,14 +231,16 @@ class NrPUSCH(SlotBatchTx):
                 cfg["ResAlloType1"]["RBSize"] * 12)
 
     def process(self, fd_slot: torch.Tensor, usage: np.ndarray,
-                slot: int, trblk=None):
+                slot: int, trblk=None, uci=None):
         """One slot into a shared grid, the reference's protocol: fd_slot
         (ant, 14*n_sc) complex64 on self.device, usage the host (ant,
         14*n_sc) int8 RE-usage map (as Pdsch.process). Both are written
         in place and returned; gated slots are left as they are. rv
         cycling and block draws follow tx_grid_batch; trblk (TBSize,)
-        replaces the slot's block. The DMRS and the data symbols go in
-        with one indexed write each, at REs read from the host map."""
+        replaces the slot's block; uci, the slot's row of
+        encode_uci_rows, replaces the UCI coded from the configuration's
+        payload lists. The DMRS and the data symbols go in with one
+        indexed write each, at REs read from the host map."""
         cfg = self.cfg
         if not self.is_active_slot(slot):
             return fd_slot, usage
@@ -221,7 +256,7 @@ class NrPUSCH(SlotBatchTx):
         g_total = self.qm * n_layers * n_data_re
         g_seq = self._ulsch_uci_process(
             torch.as_tensor(trblk, device=self.device).to(torch.int8),
-            g_total, rv, dmrs_symlist)
+            g_total, rv, dmrs_symlist, uci)
         precoded = pusch_symbol_encode(
             g_seq, self.scramble_seq(g_total),
             torch.as_tensor(self.precoding_matrix(), device=self.device),
@@ -230,14 +265,22 @@ class NrPUSCH(SlotBatchTx):
         return self._data_mapping_commit(precoded, fd_slot, usage), usage
 
     def _ulsch_uci_process(self, trblk: torch.Tensor, g_total: int, rv: int,
-                           dmrs_symlist) -> torch.Tensor:
+                           dmrs_symlist, uci=None) -> torch.Tensor:
         """(TBSize,) block -> (g_total,) int8 multiplexed coded bits (UCI
-        placeholders -1 / -2 included)."""
+        placeholders -1 / -2 included); uci the slot's coded UCI streams
+        (None: the configuration's payloads, coded once)."""
         cfg = self.cfg
         key = ("uci_mux", g_total, tuple(dmrs_symlist))
         if key not in self._cache:
             self._cache[key] = self._uci_mux_plan(g_total, dmrs_symlist)
-        rm, seq, uci = self._cache[key]
+        rm, seq, coded = self._cache[key]
+        if uci is None:
+            if coded is None:
+                raise ValueError(
+                    f"UCI streams {uci_drawn(cfg)} have no payload list: "
+                    f"set uci_bits (draw_uci_bits) and pass each slot's "
+                    f"row of encode_uci_rows as uci=")
+            uci = coded
         parts = [torch.zeros(1, dtype=torch.int8, device=self.device)]
         if cfg["EnableULSCH"] == 1:
             parts.append(ulsch_encode_batch(
@@ -247,23 +290,52 @@ class NrPUSCH(SlotBatchTx):
 
     def _uci_mux_plan(self, g_total: int, dmrs_symlist):
         """(rm info, seq (g_total,) gather index into [0, g_ulsch, g_ack,
-        g_csi1, g_csi2] (pusch_uci.multiplex_tags), the coded UCI streams
-        on the device)."""
+        g_csi1, g_csi2] (pusch_uci.multiplex_tags), the UCI streams coded
+        from the payload lists on the device, or None where a stream is
+        drawn per slot)."""
         cfg, qm = self.cfg, self.qm
         rm = self.uci_rm_info(g_total, dmrs_symlist)
-        streams = []
-        for en, nb, bits, e in (("EnableACK", "NumACKBits", "ACKbits",
-                                 "Euci_ack"),
-                                ("EnableCSI1", "NumCSI1Bits", "CSI1bits",
-                                 "Euci_CSI1"),
-                                ("EnableCSI2", "NumCSI2Bits", "CSI2bits",
-                                 "Euci_CSI2")):
-            streams.append(
-                encode_uci_on_ulsch(cfg[bits], cfg[nb], rm[e], qm)
-                if cfg[en] * cfg[nb] > 0 else np.zeros(0, np.int8))
         seq = multiplex_tags(cfg, g_total, dmrs_symlist, rm, qm)
-        return (rm, torch.tensor(seq, device=self.device),
-                torch.as_tensor(np.concatenate(streams), device=self.device))
+        coded = None
+        if not uci_drawn(cfg):
+            coded = torch.as_tensor(np.concatenate([
+                encode_uci_on_ulsch(cfg[bits], cfg[nb], rm[e], qm)
+                if cfg[en] * cfg[nb] > 0 else np.zeros(0, np.int8)
+                for _, en, nb, bits, e in UCI_STREAMS]), device=self.device)
+        return rm, torch.tensor(seq, device=self.device), coded
+
+    def uci_payload(self, n_alloc: int) -> dict:
+        """The UCI payloads of n_alloc allocated slots -> {name: (n_alloc,
+        n bits) int8} on the device for every stream that is on: its rows
+        of self.uci_bits, else its payload list in every row."""
+        drawn = self.uci_bits or {}
+        out = {}
+        for name, en, nb, bits, _ in UCI_STREAMS:
+            if not self.cfg[en] * self.cfg[nb]:
+                continue
+            out[name] = torch.as_tensor(drawn[name], device=self.device) \
+                if name in drawn else torch.as_tensor(
+                    np.asarray(self.cfg[bits], np.int8),
+                    device=self.device).expand(n_alloc, -1)
+        return out
+
+    def encode_uci_rows(self) -> torch.Tensor:
+        """The UCI of every allocated slot of self.uci_bits coded at once
+        on the device (span tx.uci_encode) -> (Sa, E_ack + E_csi1 +
+        E_csi2) int8, one row per slot in the multiplex's order, for
+        process(uci=); the layout is SlotBatchTx's slot-invariant one."""
+        cfg = self.cfg
+        assert SlotBatchTx.tx_batch_supported(self), \
+            "per-slot UCI payloads need a slot-invariant layout"
+        n_alloc = next(iter(self.uci_bits.values())).shape[0]
+        g_total = self.qm * cfg["num_of_layers"] * self._tx_layout()[1]
+        rm = self.uci_rm_info(g_total, self._dmrs_symlist())
+        with span("tx.uci_encode"):
+            pay = self.uci_payload(n_alloc)
+            return torch.cat([encode_uci_rows(pay[name], cfg[nb], rm[e],
+                                              self.qm)
+                              for name, _, nb, _, e in UCI_STREAMS
+                              if name in pay], dim=1)
 
     def uci_rm_info(self, g_total: int, dmrs_symlist) -> dict:
         """The 38.212 6.3.2.4 rate-match split of a slot's g_total coded

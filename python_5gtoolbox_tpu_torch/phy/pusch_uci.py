@@ -19,7 +19,16 @@ import torch
 
 from python_5gtoolbox_tpu_torch.ops import polar as polar_ops
 from python_5gtoolbox_tpu_torch.ops import smallblock as sb_ops
-from python_5gtoolbox_tpu_torch.ops.polar.segment import polar_cb_segment
+from python_5gtoolbox_tpu_torch.ops.polar.segment import polar_cb_segment_rows
+
+# the UCI streams multiplexed on a PUSCH, in the order of the multiplex's
+# concatenation: name, then the configuration's enable, size and payload
+# keys and the rate-match info's coded size
+UCI_STREAMS = (("ack", "EnableACK", "NumACKBits", "ACKbits", "Euci_ack"),
+               ("csi1", "EnableCSI1", "NumCSI1Bits", "CSI1bits",
+                "Euci_CSI1"),
+               ("csi2", "EnableCSI2", "NumCSI2Bits", "CSI2bits",
+                "Euci_CSI2"))
 
 # 38.213 Table 9.3-1 / 9.3-2 beta offsets.
 BETA_HARQ_ACK = [1.0, 2.0, 2.5, 3.125, 4.0, 5.0, 6.25, 8.0, 10.0, 12.625,
@@ -46,21 +55,34 @@ def _min_uci_capacity(a: int) -> int:
     return a + (a % 2) + 22
 
 
+def encode_uci_rows(bits: torch.Tensor, n_bits: int, e_tot: int,
+                    qm: int) -> torch.Tensor:
+    """38.212 6.3.1.2-6.3.1.6 UCI encoding of every row of bits (S, A)
+    at once on their device -> (S, e_tot) int8: small-block code (the
+    1- and 2-bit tables with their x / y placeholders, the (32, K)
+    Reed-Muller code as a product mod 2) repeated to e_tot, or for
+    n_bits > 11 segmentation with CRC, the polar transform and polar
+    rate matching (nMax 10, iIL 0, iBIL 1), the blocks concatenated."""
+    bits = bits.to(torch.int8)
+    if n_bits <= 11:
+        return sb_ops.ratematch_smallblock(
+            sb_ops.encode_smallblock(bits, qm), e_tot)
+    cbs, C, er = polar_cb_segment_rows(bits, e_tot)
+    enc = polar_ops.polar_encode(cbs, er, 10, 0)
+    out = polar_ops.polar_ratematch(enc, cbs.shape[-1], er, 1).reshape(
+        bits.shape[0], C * er)
+    if C * er < e_tot:
+        out = torch.cat([out, out.new_zeros((out.shape[0], e_tot - C * er))],
+                        -1)
+    return out
+
+
 def encode_uci_on_ulsch(uci_bits: np.ndarray, n_bits: int, e_tot: int,
                         qm: int) -> np.ndarray:
-    """38.212 6.3.1.2-6.3.1.6 UCI encoding (small-block or polar)."""
-    uci_bits = np.asarray(uci_bits, np.int8)
-    if n_bits <= 11:
-        d = sb_ops.encode_smallblock_np(uci_bits, qm)
-        reps = math.ceil(e_tot / d.size)
-        return np.tile(d, reps)[:e_tot]
-    cbs, C, er = polar_cb_segment(uci_bits, e_tot)
-    out = np.zeros(e_tot, np.int8)
-    for m in range(C):
-        enc = polar_ops.polar_encode(torch.as_tensor(cbs[m]), er, 10, 0)
-        out[m * er:(m + 1) * er] = polar_ops.polar_ratematch(
-            enc, cbs.shape[1], er, 1).numpy()
-    return out
+    """38.212 6.3.1.2-6.3.1.6 UCI encoding (small-block or polar) of one
+    payload on the host: encode_uci_rows of one row."""
+    return encode_uci_rows(torch.as_tensor(np.asarray(uci_bits, np.int8))
+                           [None], n_bits, e_tot, qm)[0].numpy()
 
 
 def get_ulsch_rm_info(pusch_config: dict, dmrs_symlist, ulsch_size: int,

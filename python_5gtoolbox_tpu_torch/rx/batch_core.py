@@ -82,7 +82,13 @@ def make_uci_decoder(n_bits: int, e_uci: int, qm: int,
     decode, above 11 bits CA-SCL polar (L 8, nMax 10, iIL 0, iBIL 1) with
     the encode side's segmentation. ok is the CRC of each polar block,
     True for the small-block codes (ML has no CRC). llr_limit is the
-    shortening LLR of the polar rate recovery."""
+    shortening LLR of the polar rate recovery.
+
+    Where a profiler is open (utils.profiling) a small-block decode is the
+    span rx.uci.smallblock, a polar one (rate recovery and SCL) the span
+    rx.uci.polar, which counts polar_blocks (rows times code blocks, a
+    host integer) and uci_crc_fail (the blocks whose CRC failed, summed
+    where the LLRs lie)."""
     if n_bits <= 2:
         cb = sb_ops.special_codebook(n_bits, qm)
         n_sb = cb.shape[1]                 # the special table's length
@@ -90,18 +96,20 @@ def make_uci_decoder(n_bits: int, e_uci: int, qm: int,
                 ).astype(np.int8)
 
         def fn(llr):
-            acc = sb_ops.raterecover_smallblock(llr, n_sb)
-            best = torch.argmax(acc @ torch.as_tensor(cb, device=llr.device).T,
-                                dim=-1)
-            bits = torch.as_tensor(msgs, device=llr.device)[best]
-            return bits, torch.ones(llr.shape[0], dtype=torch.bool,
-                                    device=llr.device)
+            with profiling.span("rx.uci.smallblock"):
+                acc = sb_ops.raterecover_smallblock(llr, n_sb)
+                best = torch.argmax(
+                    acc @ torch.as_tensor(cb, device=llr.device).T, dim=-1)
+                bits = torch.as_tensor(msgs, device=llr.device)[best]
+                return bits, torch.ones(llr.shape[0], dtype=torch.bool,
+                                        device=llr.device)
         return fn
     if n_bits <= 11:
         def fn(llr):
-            acc = sb_ops.raterecover_smallblock(llr, 32)
-            return sb_ops.decode_smallblock(acc, n_bits), torch.ones(
-                llr.shape[0], dtype=torch.bool, device=llr.device)
+            with profiling.span("rx.uci.smallblock"):
+                acc = sb_ops.raterecover_smallblock(llr, 32)
+                return sb_ops.decode_smallblock(acc, n_bits), torch.ones(
+                    llr.shape[0], dtype=torch.bool, device=llr.device)
         return fn
 
     cbs, C, er = polar_cb_segment(np.zeros(n_bits, np.int8), e_uci)
@@ -110,18 +118,22 @@ def make_uci_decoder(n_bits: int, e_uci: int, qm: int,
     N, _ = polar_ops.gen_n_value(K, er, 10)
 
     def fn(llr):
-        outs, oks = [], None
-        for m in range(C):
-            rec = polar_ops.polar_raterecover(llr[:, m * er:(m + 1) * er], K,
-                                              N, 1, llr_limit)
-            ck, ok = polar_ops.polar_decode_scl(rec, er, K, 8, 10, 0,
-                                                crc_len=crc_len)
-            outs.append(ck[:, : K - crc_len])
-            oks = ok if oks is None else (oks & ok)
-        bits = torch.cat(outs, dim=1)
-        if C == 2 and n_bits % 2 == 1:
-            bits = bits[:, 1:]             # drop the front zero pad
-        return bits, oks
+        with profiling.span("rx.uci.polar"):
+            outs, oks = [], None
+            for m in range(C):
+                rec = polar_ops.polar_raterecover(
+                    llr[:, m * er:(m + 1) * er], K, N, 1, llr_limit)
+                ck, ok = polar_ops.polar_decode_scl(rec, er, K, 8, 10, 0,
+                                                    crc_len=crc_len)
+                outs.append(ck[:, : K - crc_len])
+                if profiling.active() is not None:
+                    profiling.count("uci_crc_fail", ~ok)
+                oks = ok if oks is None else (oks & ok)
+            profiling.count("polar_blocks", llr.shape[0] * C)
+            bits = torch.cat(outs, dim=1)
+            if C == 2 and n_bits % 2 == 1:
+                bits = bits[:, 1:]             # drop the front zero pad
+            return bits, oks
     return fn
 
 

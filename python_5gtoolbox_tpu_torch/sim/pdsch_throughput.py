@@ -221,21 +221,29 @@ def run_pdsch_throughput(carrier_config, pdsch_config, chan_cfg,
 
 def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
               snr_db_list, ceq_algo_list, n_slots, ce_config, ldpc_config,
-              seed, device, states, prof, use_batch=True, rx_kw=None):
+              seed, device, states, prof, use_batch=True, rx_kw=None,
+              uci=False):
     """The SNR loop of the PDSCH and PUSCH sweeps: before_ceq (the
     sweep's *_before_ceq_processing) makes each point's channel object,
     slot numbers and rx_fd (Nr, S*14*n_sc) from seed + 7919 * i, then per
     equalizer one slot-batched RX call on the allocated slots
     (use_batch) or the per-slot loop (RX_process with rx_kw) leaves the
     flags on the device; the flags of all points come back in one
-    transfer at the end and print as '<label> snr=...' lines."""
+    transfer at the end and print as '<label> snr=...' lines.
+
+    uci (the PUSCH's UCI streams decoded): a slot passes a stream where
+    its flag is set and its decoded bits are the bits sent
+    (obj.uci_payload); those flags join the transfer, the results gain
+    'uci': algo -> stream -> [pass rate per SNR] and each line a count
+    per stream."""
     dev = resolve_device(device)
     stage = span if prof is None else prof.stage
     ldpc_config = dict(DEFAULT_LDPC_CONFIG, **(ldpc_config or {}))
     ce_cfg = _ce_config(ce_config, chan_cfg, carrier_config["scs"])
     period = ch_config["period_in_slot"]
     allocated = ch_config["allocated_slots"]
-    pending = []      # (snr, n_alloc, {algo: ok flags on the device})
+    pending = []      # (snr, n_alloc, {algo: [flags on the device]})
+    streams = []      # the UCI streams, in the order of their flags
     obj = None
     for i_snr, snr in enumerate(snr_db_list):
         obj, slots, rx_fd = before_ceq(
@@ -247,14 +255,21 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
         if not alloc:
             pending.append((snr, 0, None))
             continue
-        oks = {}
+        sent = obj.uci_payload(len(alloc)) if uci else {}
+        streams = list(sent)
+        flags = {}
         if not use_batch:
             ests = slot_estimates(obj, slots, rx_fd, alloc, ce_cfg, prof)
             for algo in ceq_algo_list:
                 outs = rx_slots(obj, ests, algo, ldpc_config, prof,
                                 **(rx_kw or {}))
-                oks[algo] = torch.stack([o[0] for o in outs])
-            pending.append((snr, len(alloc), oks))
+                flags[algo] = [torch.stack([o[0] for o in outs])]
+                for name in streams:
+                    bits = torch.stack([o[3][name][0] for o in outs])
+                    ok = torch.tensor([bool(o[3][name][1]) for o in outs],
+                                      device=bits.device)
+                    flags[algo].append(_stream_passed(bits, ok, sent[name]))
+            pending.append((snr, len(alloc), flags))
             continue
         nr_ant = rx_fd.shape[0]
         slot_size = rx_fd.shape[1] // n_slots
@@ -264,26 +279,45 @@ def run_sweep(label, before_ceq, carrier_config, ch_config, chan_cfg,
         obj.rvidx = -1
         for algo in ceq_algo_list:
             with stage(f"rx_batch[{algo}]"):
-                oks[algo], _ = obj.rx_process_batch(
+                out = obj.rx_process_batch(
                     rx_stack, [slots[i] for i in alloc], {"algo": algo},
-                    ldpc_config, ce_cfg, fetch=False)[:2]
-        pending.append((snr, len(alloc), oks))
+                    ldpc_config, ce_cfg, fetch=False)
+            flags[algo] = [out[0]] + [
+                _stream_passed(*out[2][name], sent[name]) for name in streams]
+        pending.append((snr, len(alloc), flags))
 
-    chunks = [oks[a] for _, _, oks in pending if oks for a in ceq_algo_list]
+    chunks = [f for _, _, flags in pending if flags
+              for a in ceq_algo_list for f in flags[a]]
     flat = torch.cat(chunks).cpu().numpy() if chunks else None
     results = {algo: [] for algo in ceq_algo_list}
+    if uci:
+        results["uci"] = {algo: {name: [] for name in streams}
+                          for algo in ceq_algo_list}
     off = 0
-    for snr, ntot, oks in pending:
+    for snr, ntot, flags in pending:
         for algo in ceq_algo_list:
-            npass = 0
-            if oks is not None:
-                npass = int(np.sum(flat[off: off + ntot]))
-                off += ntot
-            results[algo].append(npass / max(ntot, 1))
-            print(f"{label} snr={snr:+.1f}dB {algo}: {npass}/{ntot} "
-                  f"TB passed")
+            counts = []
+            for _ in range(1 + len(streams)):
+                n = 0
+                if flags is not None:
+                    n = int(np.sum(flat[off: off + ntot]))
+                    off += ntot
+                counts.append(n)
+            results[algo].append(counts[0] / max(ntot, 1))
+            line = f"{label} snr={snr:+.1f}dB {algo}: {counts[0]}/{ntot} " \
+                   f"TB passed"
+            for name, n in zip(streams, counts[1:]):
+                results["uci"][algo][name].append(n / max(ntot, 1))
+                line += f", {name} {n}/{ntot}"
+            print(line)
     results["tbs_bits"] = obj.tbsize
     return results
+
+
+def _stream_passed(bits, ok, sent) -> torch.Tensor:
+    """(Sa,) bool on the device: a slot's UCI stream passed (its flag set
+    and its decoded bits the bits sent)."""
+    return ok.to(torch.bool) & (bits == sent.to(bits.device)).all(dim=1)
 
 
 def harq_chains(carrier, pdsch_config, ce, ldpc, rv_cycle, pnoise_db,

@@ -18,7 +18,8 @@ import numpy as np
 
 from python_5gtoolbox_tpu_torch import resolve_device
 from python_5gtoolbox_tpu_torch.models import channel as chan_mod
-from python_5gtoolbox_tpu_torch.phy.pusch import NrPUSCH, uci_on
+from python_5gtoolbox_tpu_torch.phy.pusch import (NrPUSCH, draw_uci_bits,
+                                                  uci_drawn, uci_on)
 from python_5gtoolbox_tpu_torch.rx.equalize import LINEAR_EQUALIZERS
 from python_5gtoolbox_tpu_torch.sim.pdsch_throughput import run_sweep
 from python_5gtoolbox_tpu_torch.utils.profiling import span
@@ -85,9 +86,11 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
 
     -> (nr_pusch, slot numbers, rx_fd (Nr, S*14*n_sc) complex64 on the
     device). The transport blocks come from numpy's Generator seeded with
-    `seed`, the channel from a torch.Generator seeded with `seed`; state
-    (interop.state_from_numpy) replaces those draws. prof: optional
-    object whose stage(name) context manager wraps each stage
+    `seed`, the channel from a torch.Generator seeded with `seed`, the UCI
+    payloads of streams with an empty payload list from draw_uci_bits
+    (seed), kept as nr_pusch.uci_bits; state (interop.state_from_numpy,
+    and uci_bits={name: (Sa, n bits) int8}) replaces those draws. prof:
+    optional object whose stage(name) context manager wraps each stage
     (tx_waveform, channel, rx_lowphy); None records nothing, or spans of
     the active profiler where one is open.
     """
@@ -103,6 +106,12 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
     model = chan_mod.NrChannelModel(
         chan_cfg, pnoise_db, carrier_config["carrier_frequency_in_mhz"] * 1e6,
         fs_hz, scs, seed=seed, device=dev)
+    spf = slots_per_frame(scs)
+    slots = [(waveform_config["startslot"] + i) % spf for i in range(n_slots)]
+    nr_pusch.uci_bits = state.get("uci_bits")
+    if nr_pusch.uci_bits is None and uci_drawn(pusch_config):
+        nr_pusch.uci_bits = draw_uci_bits(
+            pusch_config, sum(map(nr_pusch.is_active_slot, slots)), seed, dev)
     with stage("tx_waveform"):
         _, _, ul = ul_wf.gen_ul_waveform(
             waveform_config, carrier_config, nrPusch_list=[nr_pusch],
@@ -112,8 +121,6 @@ def pusch_before_ceq_processing(carrier_config, pusch_config, chan_cfg,
                           noise=state.get("noise"))
     with stage("rx_lowphy"):
         _, rx_fd = rx_wf.waveform_rx_processing(rx, carrier_config, fs_hz)
-    spf = slots_per_frame(scs)
-    slots = [(waveform_config["startslot"] + i) % spf for i in range(n_slots)]
     return nr_pusch, slots, rx_fd
 
 
@@ -122,7 +129,8 @@ def run_pusch_throughput(carrier_config, pusch_config, chan_cfg,
                          ce_config=None, ldpc_config=None, seed=0,
                          decode_uci=False, use_batch=None, prof=None,
                          device=None, states=None):
-    """-> dict algo -> [TB pass-rate per SNR] (+ 'tbs_bits').
+    """-> dict algo -> [TB pass-rate per SNR] (+ 'tbs_bits', and with UCI
+    decoded, 'uci': algo -> stream -> [pass rate per SNR]).
 
     use_batch None picks the slot-batched RX where the config supports
     it (can_batch_pusch_rx) and no UCI decode is asked for, else the
@@ -139,4 +147,5 @@ def run_pusch_throughput(carrier_config, pusch_config, chan_cfg,
                      pusch_config, chan_cfg, snr_db_list, ceq_algo_list,
                      n_slots, ce_config, ldpc_config, seed, device, states,
                      prof, use_batch=use_batch,
-                     rx_kw=dict(decode_uci=decode_uci))
+                     rx_kw=dict(decode_uci=decode_uci),
+                     uci=uci_on(pusch_config) and (use_batch or decode_uci))

@@ -14,7 +14,8 @@ gen_ul_channel_list). Two branches, as in the JAX package:
   returns td;
 * any other list (UCI on PUSCH, several PUSCHs, PUCCH formats 0-4, SRS,
   with or without a PUSCH): per slot, each channel's process() in the
-  order PUSCH, PUCCH formats 0-4, SRS writes into the slot's grid and
+  order PUSCH, PUCCH formats 0-4, SRS (a PUSCH's UCI payloads drawn per
+  slot coded beforehand, all slots at once) writes into the slot's grid and
   RE-usage map, then ofdm.tx_low_phy, the slot phase and
   filters.tx_channel_filter over the whole frame; td is returned
   whatever return_device says. As on the DL (waveform/dl.py), the frame
@@ -117,7 +118,9 @@ def _per_slot_grids(waveform_config, nant, n_sc, spf, nrPusch_list, pucchs,
                     nrSrs_list, device, trblks=None) -> torch.Tensor:
     """Every channel's process() slot by slot (PUSCHs, PUCCH formats 0-4,
     SRS) into one frame grid -> (S, ant, 14, n_sc) complex64 on device;
-    the RE-usage maps stay on the host."""
+    the RE-usage maps stay on the host. A PUSCH whose uci_bits are set
+    (UCI payloads drawn per slot) has them coded first, one row per
+    allocated slot (NrPUSCH.encode_uci_rows)."""
     n_slots = waveform_config["numofslots"]
     start_sfn = waveform_config["startSFN"]
     start_slot = waveform_config["startslot"]
@@ -125,14 +128,18 @@ def _per_slot_grids(waveform_config, nant, n_sc, spf, nrPusch_list, pucchs,
                         device=device)
     usages = np.zeros((n_slots, nant, 14 * n_sc), np.int8)
     rows = None if trblks is None else iter(trblks)
+    ucis = [iter(ch.encode_uci_rows()) if ch.uci_bits else None
+            for ch in nrPusch_list]
     for idx in range(n_slots):
         sfn = start_sfn + (start_slot + idx) // spf
         slot = (start_slot + idx) % spf
         fd, use = grids[idx], usages[idx]
-        for ch in nrPusch_list:
+        for ch, uci in zip(nrPusch_list, ucis):
             allocated = ch.is_active_slot(slot)
             trblk = next(rows) if rows is not None and allocated else None
-            ch.process(fd, use, slot, trblk=trblk)
+            ch.process(fd, use, slot, trblk=trblk,
+                       uci=next(uci) if uci is not None and allocated
+                       else None)
         for ch in (*pucchs, *nrSrs_list):
             ch.process(fd, use, sfn, slot)
     return grids.reshape(n_slots, nant, 14, n_sc)

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
 plain PyTorch version (the two LDPC kernels in every schedule and check
 node), the sweeps through them, the plain-PyTorch polar decoder (a
-CUDA graph on the card), its study and UCI on PUSCH against the CPU, and
+CUDA graph on the card, and its counters), its study and UCI on PUSCH
+against the CPU, and
 the multi-channel DL waveforms (a full-width test model, all four DL
 channels at 245.76 Msps, the standalone SSB waveform), and the receiver
 breadth against the CPU (the per-slot RX, the ML equalizers, the DCT CE,
@@ -717,6 +718,34 @@ def test_uci_on_pusch_on_card(cuda_device):
         np.testing.assert_array_equal(uci[name][0], np.tile(sent, (4, 1)))
     assert kernels.LAUNCHES["banded_fir"] == 2
     assert kernels.LAUNCHES["ldpc_minsum_flooded"] == 1
+
+
+def test_polar_counters_on_card(cuda_device):
+    """Under a StageProfiler on the card the UCI polar decoder counts its
+    blocks (rows x code blocks), its failed CRCs (summed on the card) and
+    the CUDA graphs captured: 1 for a new shape, 0 for each replay; no
+    profiler, no count."""
+    from python_5gtoolbox_tpu_torch.phy.pusch_uci import encode_uci_rows
+    from python_5gtoolbox_tpu_torch.rx.batch_core import make_uci_decoder
+    from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+
+    bits = torch.randint(0, 2, (6, 40), dtype=torch.int8,
+                         generator=torch.Generator().manual_seed(40))
+    llr = 4.0 * (1.0 - 2.0 * encode_uci_rows(bits, 40, 636, 6).float())
+    llr[5] = -llr[5]                        # one block that fails its CRC
+    bits, llr = bits.to(cuda_device), llr.to(cuda_device)
+    dec = make_uci_decoder(40, 636, 6)
+    prof = StageProfiler(cuda_device)
+    with prof.stage("rx.ratematch"):
+        for rows in (6, 6, 3):              # capture, replay, capture
+            got, ok = dec(llr[:rows])
+    assert torch.equal(got[:3], bits[:3]) and bool(ok[:3].all())
+    assert prof.counters == {"polar_blocks": 15, "uci_crc_fail": 2,
+                             "polar_graph_captures": 2}
+    assert prof.stats["rx.uci.polar"].calls == 3
+    other = StageProfiler(cuda_device)
+    dec(llr)                                # replayed, no profiler open
+    assert other.counters == {}
 
 
 def test_testmodel_full_width_on_card(cuda_device):

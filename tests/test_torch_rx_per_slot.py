@@ -291,7 +291,9 @@ def test_pdsch_per_slot_sweep_matches_jax():
 
 def test_pusch_uci_sweep_matches_jax():
     """decode_uci=True sends the polar UCI configuration through the
-    per-slot RX in both packages."""
+    per-slot RX in both packages: the same TB pass rates; the port's
+    results also hold the UCI pass rates, which the JAX sweep does not
+    return (every slot's streams decode to the payload sent)."""
     ack, n_csi1 = POLAR_UCI
     carrier, pusch = _uci(ack, n_csi1, [1, 0] * 7)
     pusch["data_source"] = []
@@ -313,8 +315,10 @@ def test_pusch_uci_sweep_matches_jax():
                                      ldpc_config=LDPC, seed=seed,
                                      decode_uci=True, device="cpu",
                                      states=states)
+    uci = got.pop("uci")
     assert got == ref
     assert got["MMSE-IRC"][-1] == 1.0
+    assert uci == {"MMSE-IRC": {"ack": [1.0, 1.0], "csi1": [1.0, 1.0]}}
 
 
 def _numpy_calls(name):
