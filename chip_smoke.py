@@ -48,6 +48,10 @@ then drives the port's paths through its entry points:
     (three banded_fir up2 stages with the 56-tap halfband, every SFN in
     one launch), and sim/nr_csirs_report_example.py, each held against
     the plain chain and the CPU;
+  * the fading channel (csrc/fading_channel.cu) at the TDL cells'
+    channel (TDL-A 30 ns, fm 10 Hz, 23 paths, 2x4) at one slot and one
+    20-slot point of 122.88 Msps, against the plain per-path loop, beside
+    its bound;
   * parallelism on torch.distributed: 2 gloo ranks sharing the card
     (spawned after the kernels are built) run the time-sharded TX and RX
     channel filters at full width, tp_ml2 on one bench slot, the
@@ -988,7 +992,7 @@ def phase_pusch_uci() -> dict:
                              stage_ms=ms))
         launches = dict(kernels.LAUNCHES)
         want = dict(banded_fir=2 * len(snrs),
-                    ldpc_minsum_flooded=len(snrs))
+                    ldpc_minsum_flooded=len(snrs), fading_channel=len(snrs))
         if any(launches[k] != v for k, v in want.items()) \
                 or sum(launches.values()) != sum(want.values()):
             raise AssertionError(f"pusch_uci {name} launches {launches}")
@@ -1891,7 +1895,8 @@ def phase_rx_per_slot() -> dict:
     dt_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     want = dict(banded_fir=2 * len(snrs),
-                ldpc_minsum_flooded=len(snrs) * n_slots)
+                ldpc_minsum_flooded=len(snrs) * n_slots,
+                fading_channel=len(snrs))
     if any(launches[k] != v for k, v in want.items()) \
             or sum(launches.values()) != sum(want.values()):
         raise AssertionError(f"rx_per_slot launches {launches}")
@@ -2163,7 +2168,8 @@ def phase_pusch_uci_per_slot() -> dict:
         dt = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         want = dict(banded_fir=2 * len(snrs),
-                    ldpc_minsum_flooded=len(snrs) * n_slots)
+                    ldpc_minsum_flooded=len(snrs) * n_slots,
+                    fading_channel=len(snrs))
         if any(launches[k] != v for k, v in want.items()) \
                 or sum(launches.values()) != sum(want.values()):
             raise AssertionError(f"pusch_uci_per_slot {name} {launches}")
@@ -2348,6 +2354,66 @@ def phase_ml_equalizers() -> dict:
         raise AssertionError(f"ML2 256QAM card != CPU: {err}")
     row = search[0]
     return dict(max_abs_err=row["llr_rel_err"], kernel_ms=row["kernel_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=None)
+
+
+def phase_fading() -> dict:
+    """csrc/fading_channel.cu at the TDL cells' channel (TDL-A 30 ns, fm
+    10 Hz, 23 paths, 2x4, 122.88 Msps) at one slot (61,440 samples) and
+    one 20-slot point (1,228,800), against the plain per-path loop on the
+    same draws (filter_plain without noise): device ms of the kernel back
+    to back, its bound, the plain loop's ms once (warm), the error; and
+    the whole filter() of the point on the kernel path (draws, noise and
+    all). Returns the kernel table's row (the point)."""
+    chan = chan_mod.gen_channel_model_config(
+        model_format="TDL-A", Nt=2, Nr=4, fm_inHz=10, DSdesired=30,
+        Rspat_config=("customized", "uniform", "DL", (0, 0)))
+    fs, links = 122.88e6, 8
+    rows = []
+    for n in (61440, 1228800):
+        gen = torch.Generator(device=DEV).manual_seed(8)
+        tx = torch.complex(torch.randn((2, n), generator=gen, device=DEV),
+                           torch.randn((2, n), generator=gen, device=DEV))
+
+        def model(pnoise_db=255):
+            return chan_mod.NrChannelModel(chan, pnoise_db, 3.5e9, fs, 30,
+                                           seed=7, device=DEV)
+        m = model()
+        paths = m.multi_paths
+        draws, draws0 = chan_mod.fading_draws(m.gen, paths, links, m.n_sin)
+        consts = chan_mod.fading_constants(m.rspat, paths, fs, DEV)
+        w, amp = 2 * np.pi * m.fm / fs, np.sqrt(2 / m.n_sin)
+        before = kernels.LAUNCHES["fading_channel"]
+        got = chan_mod.fading_channel(tx, draws, draws0, consts, 4, w, amp)
+        torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["fading_channel"] - before
+        kernel_ms = device_ms(lambda: chan_mod.fading_channel(
+            tx, draws, draws0, consts, 4, w, amp))
+        model().filter_plain(tx)                                     # warm
+        ref, plain_ms = _event_ms(lambda: model().filter_plain(tx))
+        err = float((got - ref).abs().max() / ref.abs().max())
+        model(-20.0).filter(tx)                                      # warm
+        _, filter_ms = _event_ms(lambda: model(-20.0).filter(tx))
+        # per sample, path and link 2 n_sin cosine terms; 4 FP32
+        # instructions a term (a complex rotation, the least that keeps
+        # each term's phase exact) at half the FP32 FLOP rate; the SFU's
+        # rate, 16 cosines a clock on each of 132 SMs at 1.98 GHz, is what
+        # the kernel can reach; tx read and the output written once
+        terms = n * len(paths) * links * m.n_sin * 2
+        bound, by = bound_ms(n * (2 + 4) * 8, 2 * 4 * terms)
+        if launched != 1 or err > 1e-5:
+            raise AssertionError(f"fading_channel n {n}: {launched} "
+                                 f"launches, error {err}")
+        rows.append(dict(samples=n, paths=len(paths), links=links,
+                         terms=terms, kernel_ms=kernel_ms, bound_ms=bound,
+                         bound_by=by,
+                         sfu_ms=terms / (16 * 132 * 1.98e9) * 1e3,
+                         plain_ms=plain_ms, filter_ms=filter_ms,
+                         rel_err=err))
+    emit("fading", rows=rows)
+    row = rows[-1]
+    return dict(max_abs_err=row["rel_err"], kernel_ms=row["kernel_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=None)
 
@@ -2657,6 +2723,7 @@ def main() -> None:
                        pusch_uci_per_slot=phase_pusch_uci_per_slot(),
                        harq=phase_harq())
     rows["ml2_maxlog"] = phase_ml_equalizers()
+    rows["fading_channel"] = phase_fading()
     launches["ml2_maxlog"] = rx_launches["pdsch_throughput_example"][
         "ml2_maxlog"]
     rx_launches["ce_dct"] = phase_ce_dct()
@@ -2674,7 +2741,8 @@ def main() -> None:
     # below nfft 1024; one launch each), ldpc_minsum_packed in the
     # small-allocation sweep, the other variants of ldpc_minsum in the
     # decoder bench through ldpc_decode, ml2_maxlog in the PDSCH
-    # throughput example's batched sweep (one a point); ul_launches,
+    # throughput example's batched sweep (one a point), fading_channel in
+    # the carrier-rate sweep (one a point); ul_launches,
     # dl_launches, rx_launches, ulc_launches and par_launches: the uplink
     # phases, the multi-channel DL phases, the receiver-breadth phases, the
     # UL-control / PRACH phases and the parallel phase that launched the
@@ -2696,7 +2764,9 @@ def main() -> None:
              "pallas_filters.py:368"),
             ("duc_from_spec", "duc_from_spec.cu", "pallas_filters.py:581"),
             # none: the JAX package's ml2 is plain jnp
-            ("ml2_maxlog", "ml2_maxlog.cu", None)]:
+            ("ml2_maxlog", "ml2_maxlog.cu", None),
+            # none: the JAX package's fading generator is plain jnp
+            ("fading_channel", "fading_channel.cu", None)]:
         row = rows[name]
         table.append(dict(name=name, route="cuda", source=csrc + src,
                           replaces=replaces and tpu + replaces,

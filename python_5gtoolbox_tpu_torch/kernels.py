@@ -12,7 +12,8 @@ ops/filters.py:banded_fir, fir_up2_fused_planes (counter fir_up2_fused),
 fir_up2_fused_symbols, duc_from_spec_planes (counter duc_from_spec),
 ops/ldpc/decode.py:ldpc_minsum (one counter per variant of its kernel:
 ldpc_minsum_flooded, ldpc_minsum_flooded_fast, ldpc_minsum_layered,
-ldpc_minsum_layered_fast) and ldpc_minsum_packed.
+ldpc_minsum_layered_fast), ldpc_minsum_packed, rx/equalize.py:ml2_maxlog
+and models/channel.py:fading_channel.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ _SOURCES = {
     "duc_from_spec": [],
     # rounding fixed by intrinsics (the best candidate's row is recomputed)
     "ml2_maxlog": [],
+    # argument rounding fixed by intrinsics, the cosines on the SFU
+    "fading_channel": [],
 }
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -56,13 +59,15 @@ _SIGNATURES = {
                               [_P] * 4 + [_I] * 11 + [_P]),
     "duc_from_spec": ("duc_from_spec", [_P] * 8 + [_I] * 9 + [_P]),
     "ml2_maxlog": ("ml2_maxlog", [_P] * 7 + [_I] * 4 + [_P]),
+    "fading_channel": ("fading_channel",
+                       [_P] * 5 + [_I] * 5 + [_F, _F] + [_P]),
 }
 
 LAUNCHES = {"banded_fir": 0, "ldpc_minsum_flooded": 0,
             "ldpc_minsum_flooded_fast": 0, "ldpc_minsum_layered": 0,
             "ldpc_minsum_layered_fast": 0, "ldpc_minsum_packed": 0,
             "fir_up2_fused": 0, "fir_up2_fused_symbols": 0,
-            "duc_from_spec": 0, "ml2_maxlog": 0}
+            "duc_from_spec": 0, "ml2_maxlog": 0, "fading_channel": 0}
 # the H100 SXM the kernels are planned for: streaming multiprocessors, and
 # the dynamic shared memory a block may opt in to on sm_90 (227 KB)
 H100_SMS = 132

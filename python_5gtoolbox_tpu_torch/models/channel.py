@@ -8,6 +8,13 @@ data/tdl_profiles.npz). Randomness comes from an explicit
 torch.Generator on the model's device. filter() also takes pre-drawn
 fading taps and noise, so that a run can reproduce another
 implementation's draws.
+
+On a CUDA tensor with the model's own draws, filter() fades every path
+in one launch of the hand-written kernel csrc/fading_channel.cu
+(fading_channel), which makes the sum-of-sinusoids taps on the chip from
+the same uniforms, drawn in the same order; the plain per-path loop
+(filter_plain) is the CPU path, the path of pre-drawn taps and of shapes
+the kernel does not take, and the kernel's counterpart on the card.
 """
 from __future__ import annotations
 
@@ -17,9 +24,16 @@ import pathlib
 import numpy as np
 import torch
 
-from python_5gtoolbox_tpu_torch import resolve_device
+from python_5gtoolbox_tpu_torch import kernels, resolve_device
+from python_5gtoolbox_tpu_torch.utils import profiling
 
 _DATA = pathlib.Path(__file__).resolve().parents[1] / "data"
+# what csrc/fading_channel.cu takes: links (Nt Nr) and sinusoids a link
+FADING_KERNEL_MAX_LINKS = 16
+FADING_KERNEL_MAX_SINUSOIDS = 64
+# a path's row of the kernel's constants, after the factor L
+_PATH_ROW = np.dtype([("gain", "<f4"), ("delay", "<i4"), ("rician", "<i4"),
+                      ("nlos", "<f4"), ("los", "<f4"), ("fdo", "<f4")])
 
 
 def gen_correlation_matrix(size: int, delta) -> np.ndarray:
@@ -168,12 +182,123 @@ def gen_mimo_channel(gen: torch.Generator, nt: int, nr: int,
     else:
         vec = rician_filters(gen, n, k_db, fdo, fmax, fs, n_sin,
                              shape=(nt * nr,))
-    L = np.linalg.cholesky(np.asarray(rspat)) if rspat.shape[0] > 1 \
-        else rspat
-    mixed = torch.as_tensor(np.asarray(L, np.complex64),
+    mixed = torch.as_tensor(_cholesky(rspat),
                             device=vec.device) @ vec          # (Nt*Nr, n)
     # vec_H.reshape((Nr, Nt), order='F') == reshape (Nt, Nr), transpose
     return mixed.reshape(nt, nr, n).permute(2, 1, 0)
+
+
+def _cholesky(rspat: np.ndarray) -> np.ndarray:
+    """The complex64 factor that mixes the links of every path."""
+    L = np.linalg.cholesky(np.asarray(rspat)) if rspat.shape[0] > 1 \
+        else rspat
+    return np.asarray(L, np.complex64)
+
+
+def _path_delay(path, fs: float) -> int:
+    return int(np.round(path[0] * 1e-9 * fs))
+
+
+def fading_on_kernel(tx: torch.Tensor, links: int, n_sin: int) -> bool:
+    """Whether filter() fades with csrc/fading_channel.cu: a CUDA tensor,
+    at most 16 links (Nt Nr) and 64 sinusoids. Anything else, and pre-drawn
+    taps, take the plain per-path loop."""
+    return (tx.is_cuda and links <= FADING_KERNEL_MAX_LINKS
+            and n_sin <= FADING_KERNEL_MAX_SINUSOIDS)
+
+
+def fading_draws(gen: torch.Generator, paths, links: int, n_sin: int):
+    """The uniforms of every path in the plain path's order and shapes
+    (rayleigh_filters' phase1, phase2, seta (links, n_sin, 1), then
+    rician_filters' phase0 (links, 1) on a Rician path), drawn into one
+    (paths, 3, links, n_sin, 1) and one (paths, links, 1) float32 tensor,
+    so that the generator ends where the plain path leaves it. A Rayleigh
+    path's row of the second is left unset."""
+    dev = gen.device
+    draws = torch.empty((len(paths), 3, links, n_sin, 1), device=dev)
+    draws0 = torch.empty((len(paths), links, 1), device=dev)
+    for p, path in enumerate(paths):
+        for j in range(3):
+            torch.rand((links, n_sin, 1), generator=gen, out=draws[p, j])
+        if path[2] != "Rayleigh":
+            torch.rand((links, 1), generator=gen, out=draws0[p])
+    return draws, draws0
+
+
+def fading_constants(rspat: np.ndarray, paths, fs: float,
+                     device) -> torch.Tensor:
+    """csrc/fading_channel.cu's constants as bytes on device: the (links,
+    links) complex64 factor L, then a row a path of gain 10^(dB / 20),
+    delay in samples, Rician flag, fl(1 / fl(sqrt(K + 1))) (the plain
+    path divides by a scalar as a product with its reciprocal), sqrt(K /
+    (K + 1)) and 2 pi fDo / fs. A configuration's constants are uploaded
+    once a device (a pageable copy synchronises) and kept."""
+    kv = np.array([10 ** (p[3] / 10) for p in paths])
+    rows = np.zeros(len(paths), _PATH_ROW)
+    rows["gain"] = [10 ** (p[1] / 20) for p in paths]
+    rows["delay"] = [_path_delay(p, fs) for p in paths]
+    rows["rician"] = [p[2] != "Rayleigh" for p in paths]
+    rows["nlos"] = np.float32(1) / np.sqrt(kv + 1).astype(np.float32)
+    rows["los"] = np.sqrt(kv / (kv + 1))
+    rows["fdo"] = [2 * np.pi * p[4] / fs for p in paths]
+    return _on_device(_cholesky(rspat).tobytes() + rows.tobytes(),
+                      str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=32)
+def _on_device(blob: bytes, device: str) -> torch.Tensor:
+    return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+
+
+def fading_channel(tx: torch.Tensor, draws: torch.Tensor,
+                   draws0: torch.Tensor, consts: torch.Tensor, nr: int,
+                   w: float, amp: float) -> torch.Tensor:
+    """The faded sum over paths of NrChannelModel.filter_plain, one launch
+    of the hand-written kernel csrc/fading_channel.cu: tx (Nt, N)
+    complex64, the uniforms of fading_draws, the constants of
+    fading_constants, all contiguous on one CUDA device; w = 2 pi fm / fs,
+    amp = sqrt(2 / n_sin) -> (Nr, N) complex64. Nothing of size (links,
+    sinusoids, samples) and no per-path tap reaches device memory.
+    Replaces no TPU kernel (the JAX package's generator is plain jnp)."""
+    nt, n = tx.shape
+    n_paths, three, links, n_sin, one = draws.shape
+    dev = tx.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (draws, draws0, consts)):
+        raise ValueError("fading_channel: tx, draws, draws0 and consts must "
+                         "be on one CUDA device")
+    if (tx.dtype, draws.dtype, draws0.dtype, consts.dtype) != (
+            torch.complex64, torch.float32, torch.float32, torch.uint8):
+        raise ValueError("fading_channel: tx must be complex64, the draws "
+                         "float32 and consts uint8")
+    if (three, one) != (3, 1) or links != nt * nr \
+            or tuple(draws0.shape) != (n_paths, links, 1) \
+            or consts.numel() != 8 * links * links \
+            + _PATH_ROW.itemsize * n_paths:
+        raise ValueError(f"fading_channel: draws {tuple(draws.shape)}, "
+                         f"draws0 {tuple(draws0.shape)} and {consts.numel()} "
+                         f"constant bytes do not fit tx {tuple(tx.shape)} "
+                         f"and Nr {nr}")
+    if not (tx.is_contiguous() and draws.is_contiguous()
+            and draws0.is_contiguous() and consts.is_contiguous()):
+        raise ValueError("fading_channel: tx, draws, draws0 and consts must "
+                         "be contiguous")
+    if not (1 <= links <= FADING_KERNEL_MAX_LINKS and n_paths >= 1
+            and 1 <= n_sin <= FADING_KERNEL_MAX_SINUSOIDS):
+        raise ValueError(f"fading_channel: takes 1..{FADING_KERNEL_MAX_LINKS}"
+                         f" links, 1..{FADING_KERNEL_MAX_SINUSOIDS} "
+                         f"sinusoids and a path or more, got {links}, "
+                         f"{n_sin}, {n_paths}")
+    out = torch.empty((nr, n), dtype=torch.complex64, device=dev)
+    if n == 0:
+        return out
+    fn = kernels.library("fading_channel").fading_channel
+    rc = fn(tx.data_ptr(), draws.data_ptr(), draws0.data_ptr(),
+            consts.data_ptr(), out.data_ptr(), n, nt, nr, n_paths, n_sin, w,
+            amp, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check("fading_channel", rc)
+    kernels.LAUNCHES["fading_channel"] += 1
+    return out
 
 
 def _delay(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -234,8 +359,22 @@ class NrChannelModel:
 
         taps: optional per-path (N, Nr, Nt) complex fading taps and noise
         an optional (Nr, N) complex unit-variance-per-component AWGN draw
-        (scaled here), used instead of this model's own draws.
+        (scaled here), used instead of this model's own draws. With its own
+        taps the paths are one launch of csrc/fading_channel.cu where
+        fading_on_kernel says so, else the plain per-path loop. On a CUDA
+        tensor the counters fading_kernel_paths / fading_plain_paths count
+        the paths of each route; a CPU tensor, which has no kernel to take,
+        counts nothing.
         """
+        return self._filter(tx, taps, noise, True)
+
+    def filter_plain(self, tx: torch.Tensor, taps=None, noise=None
+                     ) -> torch.Tensor:
+        """filter through the plain per-path loop on any device: the same
+        draws, the kernel's counterpart on the card."""
+        return self._filter(tx, taps, noise, False)
+
+    def _filter(self, tx, taps, noise, on_kernel: bool) -> torch.Tensor:
         dev = self.device
         tx = tx.to(dev, torch.complex64)
         n = tx.shape[1]
@@ -248,19 +387,22 @@ class NrChannelModel:
             if taps is not None and len(taps) != len(self.multi_paths):
                 raise ValueError(f"{len(taps)} tap series for "
                                  f"{len(self.multi_paths)} paths")
-            acc = torch.zeros((self.nr, n), dtype=torch.complex64,
-                              device=dev)
-            for i, path in enumerate(self.multi_paths):
-                if taps is None:
-                    h = gen_mimo_channel(self.gen, self.nt, self.nr,
-                                         self.rspat, n, self.fs, path[2],
-                                         path[3], path[4], self.fm,
-                                         self.n_sin)
-                else:
-                    h = taps[i].to(dev, torch.complex64)
-                tap = torch.einsum("nrt,tn->rn", h, tx) * 10 ** (path[1] / 20)
-                acc = acc + _delay(tap, int(np.round(path[0] * 1e-9
-                                                     * self.fs)))
+            if on_kernel and taps is None and fading_on_kernel(
+                    tx, self.nt * self.nr, self.n_sin):
+                profiling.count("fading_kernel_paths", len(self.multi_paths))
+                acc = fading_channel(
+                    tx.contiguous(),
+                    *fading_draws(self.gen, self.multi_paths,
+                                  self.nt * self.nr, self.n_sin),
+                    fading_constants(self.rspat, self.multi_paths, self.fs,
+                                     dev),
+                    self.nr, 2 * np.pi * self.fm / self.fs,
+                    np.sqrt(2 / self.n_sin))
+            else:
+                if tx.is_cuda:
+                    profiling.count("fading_plain_paths",
+                                    len(self.multi_paths))
+                acc = self._paths_plain(tx, taps)
         else:
             acc = tx.expand(self.nr, n) if self.nt == self.nr \
                 else tx[: self.nr]
@@ -271,4 +413,21 @@ class NrChannelModel:
                     torch.randn(acc.shape, generator=self.gen, device=dev),
                     torch.randn(acc.shape, generator=self.gen, device=dev))
             acc = acc + sigma * noise.to(dev, torch.complex64)
+        return acc
+
+    def _paths_plain(self, tx: torch.Tensor, taps) -> torch.Tensor:
+        """The faded sum over paths, path by path: each path's (N, Nr, Nt)
+        taps (drawn here, or taps[i]) applied to tx, delayed and added."""
+        dev = self.device
+        n = tx.shape[1]
+        acc = torch.zeros((self.nr, n), dtype=torch.complex64, device=dev)
+        for i, path in enumerate(self.multi_paths):
+            if taps is None:
+                h = gen_mimo_channel(self.gen, self.nt, self.nr, self.rspat,
+                                     n, self.fs, path[2], path[3], path[4],
+                                     self.fm, self.n_sin)
+            else:
+                h = taps[i].to(dev, torch.complex64)
+            tap = torch.einsum("nrt,tn->rn", h, tx) * 10 ** (path[1] / 20)
+            acc = acc + _delay(tap, _path_delay(path, self.fs))
         return acc

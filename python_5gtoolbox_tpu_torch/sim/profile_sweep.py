@@ -59,7 +59,8 @@ N_SLOTS = 20
 PORT_KERNELS = ("banded_fir_kernel", "ldpc::decode_kernel",
                 "ldpc::decode_warp_kernel", "fir_up2_fused_kernel",
                 "fir_up2_fused_symbols_kernel",
-                "duc_from_spec_kernel", "ml2_maxlog_kernel")
+                "duc_from_spec_kernel", "ml2_maxlog_kernel",
+                "fading_channel_kernel")
 
 
 def _run_sweep(rate_mhz=None, prof=None, small_alloc=False, pusch=False,

@@ -6,8 +6,9 @@ against the CPU, and
 the multi-channel DL waveforms (a full-width test model, all four DL
 channels at 245.76 Msps, the standalone SSB waveform), and the receiver
 breadth against the CPU (the per-slot RX, the ML equalizers, the DCT CE,
-the TDL channel with pinned taps), and ML2's search kernel against the
-plain search on the card.
+the TDL channel with pinned taps), ML2's search kernel against the
+plain search on the card, and the fading channel's kernel against the
+plain per-path loop.
 
 Marked `cuda`; every test skips (from the `cuda_device` fixture) where
 torch sees no CUDA device. On the card (whose Python has no jax, which
@@ -597,6 +598,7 @@ def test_batched_rx_goes_through_both_kernels(cuda_device):
     assert res["MMSE-IRC"] == [1.0]
     assert kernels.LAUNCHES["banded_fir"] > 0
     assert kernels.LAUNCHES["ldpc_minsum_flooded"] > 0
+    assert kernels.LAUNCHES["fading_channel"] == 1
 
 
 def test_oversampled_sweep_goes_through_the_duc_kernels(cuda_device):
@@ -944,6 +946,113 @@ def test_tdl_filter_on_card_matches_cpu(cuda_device):
         out.append(model.filter(torch.as_tensor(tx, device=dev),
                                 taps=st["taps"], noise=st["noise"]).cpu())
     assert (out[0] - out[1]).abs().max() <= 1e-5 * out[1].abs().max()
+
+
+# --- the fading channel: csrc/fading_channel.cu against the plain loop ---
+#
+# Both run the same filter() on the same seed: the kernel path and
+# filter_plain draw the same uniforms, in the same order, so their
+# generators agree afterwards and so do the AWGN draws. Tolerance 1e-5 of
+# the largest output magnitude: a term is a hardware cosine (absolute
+# error ~4e-7) of the argument the plain path rounds, where the plain path
+# takes an accurate cosine; 30 such terms a link and the L mix stay near
+# 1e-6 of a tap.
+
+FADING_CASES = {
+    # the TDL cells' channel (TDL-A 30 ns, fm 10 Hz) at one slot and one
+    # 20-slot point of 122.88 Msps
+    "tdla30_2x4_slot": ("TDL-A", 2, 4, 61440, dict(DSdesired=30,
+                                                    fm_inHz=10)),
+    "tdla30_2x4_point": ("TDL-A", 2, 4, 1228800, dict(DSdesired=30,
+                                                       fm_inHz=10)),
+    # a Rician LOS path
+    "tdld_1x2": ("TDL-D", 1, 2, 61440, dict(
+        DSdesired=300, fm_inHz=200,
+        Rspat_config=("low", "uniform", "UL", (0, 0)))),
+    # the ML cell's one tap at fm 200 Hz
+    "one_tap_fm200_2x4": ("customized", 2, 4, 1228800, dict(
+        fm_inHz=200, multi_paths=[[0, 0, "Rayleigh", 0, 0]])),
+    # timing and frequency errors, correlated antennas
+    "timeoff_rho_2x4": ("TDL-A", 2, 4, 61440, dict(
+        DSdesired=300, fm_inHz=100, Timeoff_ns=120, rho=2e-6,
+        Rspat_config=("medium", "uniform", "DL", (0, 0)))),
+}
+
+
+def _fading_models(device, case, pnoise_db=-20.0, seed=11):
+    from python_5gtoolbox_tpu_torch.models import channel as chan_mod
+    fmt, nt, nr, n, kw = FADING_CASES[case]
+    kw = dict(kw)
+    kw.setdefault("Rspat_config", ("customized", "uniform", "DL", (0, 0)))
+    cfg = chan_mod.gen_channel_model_config(model_format=fmt, Nt=nt, Nr=nr,
+                                            **kw)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    tx = torch.complex(torch.randn((nt, n), generator=gen, device=device),
+                       torch.randn((nt, n), generator=gen, device=device))
+    return cfg, tx, [chan_mod.NrChannelModel(cfg, pnoise_db, 3.5e9, 122.88e6,
+                                             30, seed=seed, device=device)
+                     for _ in range(2)]
+
+
+@pytest.mark.parametrize("case", list(FADING_CASES))
+def test_fading_kernel_matches_the_plain_loop(cuda_device, case):
+    from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+    cfg, tx, (kern, plain) = _fading_models(cuda_device, case)
+    before = dict(kernels.LAUNCHES)
+    prof = StageProfiler(cuda_device)
+    with prof.stage("channel"):
+        got = kern.filter(tx)
+    ref = plain.filter_plain(tx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict(before, fading_channel=before[
+        "fading_channel"] + 1)
+    assert prof.counters == {"fading_kernel_paths": len(cfg["multi_paths"])}
+    assert got.shape == ref.shape == (cfg["Nr"], tx.shape[1])
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(torch.rand(8, generator=kern.gen, device=cuda_device),
+                       torch.rand(8, generator=plain.gen, device=cuda_device))
+
+
+def test_fading_kernel_refuses_or_routes_what_it_does_not_take(cuda_device):
+    """The wrapper refuses another device, dtype, shape or layout; filter
+    sends more than 16 links, and pre-drawn taps, to the plain loop and
+    counts them there."""
+    from python_5gtoolbox_tpu_torch.models import channel as chan_mod
+    from python_5gtoolbox_tpu_torch.utils.profiling import StageProfiler
+    cfg, tx, (m, _) = _fading_models(cuda_device, "tdla30_2x4_slot")
+    paths = m.multi_paths
+    draws, draws0 = chan_mod.fading_draws(m.gen, paths, 8, m.n_sin)
+    consts = chan_mod.fading_constants(m.rspat, paths, m.fs, cuda_device)
+    w, amp = 2 * np.pi * m.fm / m.fs, np.sqrt(2 / m.n_sin)
+    ok = chan_mod.fading_channel(tx, draws, draws0, consts, 4, w, amp)
+    assert ok.shape == (4, tx.shape[1])
+    wide = torch.zeros((2, 2 * tx.shape[1]), dtype=torch.complex64,
+                       device=cuda_device)
+    for bad in (dict(tx=tx.cpu()), dict(consts=consts.cpu()),
+                dict(tx=tx.to(torch.complex128)), dict(draws=draws.double()),
+                dict(tx=wide[:, ::2]), dict(nr=2), dict(draws0=draws0[:1]),
+                dict(consts=consts[:-1])):
+        args = dict(tx=tx, draws=draws, draws0=draws0, consts=consts, nr=4,
+                    w=w, amp=amp)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            chan_mod.fading_channel(**args)
+    wide_cfg = chan_mod.gen_channel_model_config(
+        model_format="customized", Nt=4, Nr=8, fm_inHz=200,
+        multi_paths=[[0, 0, "Rayleigh", 0, 0]])
+    model = chan_mod.NrChannelModel(wide_cfg, -20.0, 3.5e9, 30.72e6, 30,
+                                    device=cuda_device)
+    taps = [torch.zeros((3000, 4, 2), dtype=torch.complex64,
+                        device=cuda_device)] * len(paths)
+    before = kernels.LAUNCHES["fading_channel"]
+    prof = StageProfiler(cuda_device)
+    with prof.stage("channel"):
+        model.filter(torch.ones((4, 3000), dtype=torch.complex64,
+                                device=cuda_device))
+        m.filter(tx[:, :3000], taps=taps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fading_channel"] == before
+    assert prof.counters == {"fading_plain_paths": 1 + len(paths)}
 
 
 def test_ml_irc_whitening_in_eigh_batches_on_card(cuda_device):
